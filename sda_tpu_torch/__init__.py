@@ -1,0 +1,12 @@
+"""PyTorch + CUDA port of the ``sda_tpu`` device plane.
+
+The single-device secure-sum engine (share -> clerk-combine -> reconstruct)
+and its fused limb share-and-reduce kernel, written for an NVIDIA H100
+(``sm_90a``). Layout mirrors ``sda_tpu`` (``ops/``, ``parallel/``,
+``protocol/``) so each module's counterpart is easy to find.
+
+The package imports ``torch`` and numpy only: never ``jax`` and nothing of
+``sda_tpu`` (it keeps its own copies of the framework-free helpers it
+needs). Entry points run on CUDA unless the caller passes ``device="cpu"``,
+and raise when no GPU is present (``device.resolve_device``).
+"""

@@ -23,6 +23,10 @@ setup(
         "sda_tpu.cli",
         "sda_tpu.native",
         "sda_tpu.utils",
+        "sda_tpu_torch",
+        "sda_tpu_torch.ops",
+        "sda_tpu_torch.parallel",
+        "sda_tpu_torch.protocol",
     ],
     ext_modules=[
         Extension(

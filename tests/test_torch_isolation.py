@@ -1,0 +1,102 @@
+"""The port stands alone: no module of ``sda_tpu_torch`` nor ``chip_smoke.py``
+imports ``jax`` or ``sda_tpu``; entry points default to CUDA and raise
+without it; ``chip_smoke.py`` fails on a host without a GPU."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "sda_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "sda_tpu")
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", getattr(node.func, "id", None))
+            in ("import_module", "__import__")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+        ):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    for name in _imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {name}"
+
+
+def _no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: this checks the behaviour without one")
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, pkgutil, importlib, sda_tpu_torch\n"
+        "for m in pkgutil.walk_packages(sda_tpu_torch.__path__, 'sda_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sda_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean', len([m for m in sys.modules if m.startswith('sda_tpu_torch')]))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("clean")
+
+
+def test_default_device_raises_without_gpu():
+    _no_gpu()
+    from sda_tpu_torch import convert
+    from sda_tpu_torch.device import resolve_device
+    from sda_tpu_torch.parallel import TorchAggregator, make_plan
+    from sda_tpu_torch.protocol import PackedShamirSharing
+
+    scheme = PackedShamirSharing(3, 8, 4, 433, 354, 150)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchAggregator(scheme, 10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_plan(scheme, 10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.accumulator_from_reference([[[0]]])
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert TorchAggregator(scheme, 10, device="cpu").device == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_gpu():
+    _no_gpu()
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True, text=True,
+        timeout=120, env=env,
+    )
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
