@@ -10,14 +10,27 @@ Phases, each reported on its own line:
 2. build: compiles every kernel from ``sda_tpu_torch/csrc`` (seconds, and
    ptxas' register/spill report);
 3. parity: each kernel against its plain PyTorch version on the card, at the
-   main path's full-width shape and at ragged shapes, bit-identical;
+   main path's full-width shape and at ragged shapes, bit-identical (K1 the
+   limb share-and-reduce, K2 the ChaCha20 keystream, and K2's batched mask
+   expansion against the host ``expand_seed``);
 4. main path: one packed-Shamir secure-sum round of 100,000 participants x
    10,000 dims streamed in chunks of 2,000 through ``share_combine_limb_cuda``
    (the bench scheme: k=5, t=2, n=8, 31-bit p), revealed from clerks 1..7 and
    held against an independent int64 sum on the card; then
    ``TorchAggregator.secure_sum`` on its int64 and limb paths;
-5. numbers: launch counts of the main-path run, kernel and plain times per
-   chunk (CUDA events), the bound, the round's wall time.
+5. masked path: the same round with ChaCha masking: each chunk's 128-bit
+   seeds expand on the card (``expand_seeds_counts``, K2), mask the secrets
+   mod p and go through K1; the recipient reconstructs the masked total,
+   re-expands all 100,000 seeds (``combine_masks_device``, K2) and unmasks;
+6. reveal: ``combine_masks_device`` over 1,000,000 seeds x 100,000 dims, the
+   size K2 was written for; then K2 against its plain version at both
+   shapes the reveal launched it at (a full fold and the last, shorter
+   one), those two folds' partials against the host ``expand_seed`` rows
+   folded in numpy, 8 sampled rows against ``expand_seed``, and a profile
+   of a few folds (kernel against the torch compaction);
+7. numbers: launch counts of each path's run, kernel and plain times per
+   chunk (CUDA events; K2's own time by ``torch.profiler``), the bound, the
+   paths' wall times.
 
 Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed phase raises, and the script exits nonzero.
@@ -35,9 +48,23 @@ import time
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and int8 tensor-core ops/s
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+# 32-bit integer lanes of an H100 SM per clock: 4 schedulers issue one 32-lane
+# warp instruction each (128); logic ops and funnel shifts run only on the
+# 64-lane INT pipe, adds also on the 64-lane FMA pipe (as IMAD). Rates are
+# these times the SM count and the card's maximum SM clock.
+ISSUE_LANES_PER_SM = 128
+INT_PIPE_LANES_PER_SM = 64
+# ChaCha20 per 64-byte block: 80 quarter rounds x (4 adds + 4 xors + 4
+# rotates, one funnel shift each) + 16 feed-forward adds; the xors and
+# funnel shifts are the INT-pipe-only share
+CHACHA_OPS_PER_BLOCK = 80 * 12 + 16
+CHACHA_INT_PIPE_OPS_PER_BLOCK = 80 * 8
 
 PARTICIPANTS, DIM, CHUNK = 100_000, 10_000, 2_000
 K_SECRETS, THRESHOLD, CLERKS = 5, 2, 8
+SEED_WORDS = 4  # 128-bit ChaCha seeds, the reference's default seed_bitsize
+REVEAL_SEEDS, REVEAL_DIM = 1_000_000, 100_000
+KNOWN_BLOCK0 = "76b8e0ada0f13d90405d6ae55386bd28bdd219b8a08ded1aa836efcc8b770dc7"
 
 
 def _line(phase: str, **fields) -> None:
@@ -63,10 +90,11 @@ def _time_ms(fn, iters: int, warmup: int = 1) -> float:
 PROFILE_CHUNKS = 5
 
 
-def _profile_chunks(step, chunks: int) -> None:
+def _profile_chunks(step, chunks: int, label: str = "main path", kernel: str | None = None) -> None:
     """Where one streamed chunk's device time goes: ``torch.profiler`` over a
-    few chunks of the main path (after its launch counts were read), kernel
-    time by name and the device's busy share of the window's wall."""
+    few chunks of a path (after its launch counts were read), kernel time by
+    name and the device's busy share of the window's wall; with ``kernel``,
+    also the split between that kernel and everything else."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -82,14 +110,46 @@ def _profile_chunks(step, chunks: int) -> None:
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not busy_ms:
-        _line("profile", chunks=chunks, wall_ms=wall_ms, device_time="not measured")
+        _line("profile", path=label, chunks=chunks, wall_ms=wall_ms, device_time="not measured")
         return
+    split = {}
+    if kernel is not None:
+        own = sum(e.self_device_time_total for e in kernels if kernel in e.key) / 1e3
+        split = {"split_ms_per_chunk": {kernel: own / chunks, "rest": (busy_ms - own) / chunks}}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    _line("profile", chunks=chunks, wall_ms=wall_ms, device_busy_ms=busy_ms,
-          busy_share=busy_ms / wall_ms, kernels=[
+    _line("profile", path=label, chunks=chunks, wall_ms=wall_ms, device_busy_ms=busy_ms,
+          busy_share=busy_ms / wall_ms, **split, kernels=[
               {"name": e.key[:70], "ms_per_chunk": e.self_device_time_total / 1e3 / chunks,
                "count": e.count, "share": e.self_device_time_total / 1e3 / busy_ms}
               for e in top])
+
+
+def _kernel_ms(fn, iters: int, kernel: str) -> float:
+    """Device time per launch of the kernel named ``kernel`` while ``fn``
+    runs ``iters`` times: its own time by ``torch.profiler``, without the
+    host work of the wrapper that launches it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    own = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in own)
+    if count != iters:
+        raise AssertionError(f"the profiler saw {count} launches of {kernel}, expected {iters}")
+    return sum(e.self_device_time_total for e in own) / 1e3 / count
+
+
+def _query_gpu(field: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:
@@ -97,6 +157,7 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
 
+    import numpy as np
     import torch
 
     # -- 1. device ---------------------------------------------------------
@@ -105,7 +166,15 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from sda_tpu_torch import kernels
-    from sda_tpu_torch.ops import find_packed_parameters
+    from sda_tpu_torch.ops import chacha_cuda, find_packed_parameters
+    from sda_tpu_torch.ops.chacha import chacha_blocks_torch, expand_seed
+    from sda_tpu_torch.ops.chacha_cuda import (
+        chacha_blocks_cuda,
+        combine_masks_device,
+        expand_seeds_batch,
+        expand_seeds_counts,
+        seed_tensor,
+    )
     from sda_tpu_torch.ops.modular import positive
     from sda_tpu_torch.ops.rng import uniform_bits_device_narrow
     from sda_tpu_torch.parallel import TorchAggregator, limb_cuda, make_plan
@@ -163,12 +232,47 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         max_err = max(max_err, err)
-        _line("parity", case=label, shape=list(values.shape), out=list(got.shape),
-              identical=bool(torch.equal(got, want)))
+        _line("parity", kernel="limb_share_sum", case=label, shape=list(values.shape),
+              out=list(got.shape), identical=bool(torch.equal(got, want)))
         if not torch.equal(got, want):
             raise AssertionError(f"limb_share_sum differs from its plain version ({label})")
         if label == "full":
             full_values = values
+
+    rng = np.random.default_rng(args.seed)
+
+    def draw_seeds(P, w=SEED_WORDS):
+        return rng.integers(0, 1 << 32, size=(P, w), dtype=np.uint64).astype(np.uint32)
+
+    chunk_blocks = chacha_cuda.window_blocks(DIM, p)  # per seed, 1,251 here
+    chunk_keys = seed_tensor(draw_seeds(CHUNK), dev)
+    k2_cases = [  # (label, keys, first counter, blocks)
+        (f"full chunk {CHUNK} seeds x {chunk_blocks} blocks", chunk_keys, 0, chunk_blocks),
+        ("1 seed x 1 block", seed_tensor(draw_seeds(1), dev), 0, 1),
+        ("7 seeds x 700 blocks, 2-word keys", seed_tensor(draw_seeds(7, 2), dev), 0, 700),
+        ("first counter 2^32-3 x 7 blocks", seed_tensor(draw_seeds(3), dev), (1 << 32) - 3, 7),
+        ("zero key, counter 0 (known vector)", torch.zeros(8, dtype=torch.int64, device=dev), 0, 1),
+    ]
+    k2_err = 0
+    for label, keys, first, n_blocks in k2_cases:
+        got = chacha_blocks_cuda(keys, first, n_blocks)
+        want = chacha_blocks_torch(keys, first, n_blocks)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        k2_err = max(k2_err, int((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
+        if keys.ndim == 1:  # djb's zero-key block 0
+            stream = got[0].cpu().numpy().view(np.uint32).astype("<u4").tobytes()
+            same = same and stream[:32].hex() == KNOWN_BLOCK0
+        _line("parity", kernel="chacha20", case=label, shape=list(got.shape), identical=same)
+        if not same:
+            raise AssertionError(f"chacha20 differs from its plain version ({label})")
+    host_seeds = draw_seeds(4)
+    got = expand_seeds_batch(seed_tensor(host_seeds, dev), 4096, (1 << 61) - 1).cpu().numpy()
+    same = bool(np.array_equal(got, np.stack([expand_seed(s, 4096, (1 << 61) - 1) for s in host_seeds])))
+    _line("parity", kernel="chacha20", case="expand_seeds_batch 4 seeds x 4096 dims, m=2^61-1, "
+          "against the host expand_seed", shape=list(got.shape), identical=same)
+    if not same:
+        raise AssertionError("expand_seeds_batch differs from the host expand_seed")
 
     # -- 4. main path at full width ------------------------------------------
     nbits = p.bit_length() - 1
@@ -188,13 +292,15 @@ def main(argv=None) -> int:
         return acc, plain
 
     torch.cuda.synchronize()
-    limb_cuda.launches = 0
+    limb_cuda.launches = chacha_cuda.launches = 0
     t0 = time.perf_counter()
     for _ in range(n_chunks):
         acc, plain = one_chunk(acc, plain)
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     launches = limb_cuda.launches
+    if chacha_cuda.launches:
+        raise AssertionError("the unmasked main path launched chacha20")
     survivors = list(range(1, 1 + scheme.reconstruction_threshold))  # clerk 0 dropped
     clerk_sums = torch.as_tensor(limb_recombine_host(acc, p).T.copy(), device=dev)
     out = reconstruct(clerk_sums, survivors, scheme, DIM)
@@ -218,7 +324,110 @@ def main(argv=None) -> int:
         if not ok:
             raise AssertionError(f"secure_sum ({'limb' if use_limbs else 'int64'}) != plain sum")
 
-    # -- 5. numbers ------------------------------------------------------------
+    # -- 5. masked path: the same round with ChaCha masking -------------------
+    mask_seeds = draw_seeds(PARTICIPANTS)
+    mask_seeds_dev = seed_tensor(mask_seeds, dev)
+    acc = torch.zeros_like(acc)
+    plain = torch.zeros_like(plain)
+    min_count = torch.full((), (1 << 31) - 1, dtype=torch.int32, device=dev)
+    marks = []
+    torch.cuda.synchronize()
+    limb_cuda.launches = chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
+    t0 = time.perf_counter()
+    for c in range(n_chunks):
+        secrets = uniform_bits_device_narrow(gen, (CHUNK, DIM), nbits)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()
+        masks, counts = expand_seeds_counts(mask_seeds_dev[c * CHUNK : (c + 1) * CHUNK], DIM, p)
+        masked = torch.fmod(secrets + masks, p).to(torch.int32)
+        min_count = torch.minimum(min_count, counts.min())
+        events[1].record()
+        acc = torch.fmod(acc + share_combine_limb_cuda(masked, gen, plan, draw=draw), p)
+        events[2].record()
+        plain = torch.fmod(plain + torch.sum(secrets, dim=0, dtype=torch.int64), p)
+        marks.append(events)
+    torch.cuda.synchronize()
+    participants_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clerk_sums = torch.as_tensor(limb_recombine_host(acc, p).T.copy(), device=dev)
+    masked_total = reconstruct(clerk_sums, survivors, scheme, DIM)
+    combined = combine_masks_device(mask_seeds, DIM, p, device=dev)
+    out = positive(torch.fmod(masked_total - combined, p), p)
+    torch.cuda.synchronize()
+    unmask_s = time.perf_counter() - t0
+    masked_launches = {"limb_share_sum": limb_cuda.launches, "chacha20": chacha_cuda.launches}
+    exact = bool(torch.equal(out, positive(plain, p)))
+    fold_chunk = chacha_cuda.default_chunk(DIM)
+    want_k2 = n_chunks + -(-PARTICIPANTS // fold_chunk)
+    _line("masked path", participants=PARTICIPANTS, dim=DIM, chunk=CHUNK, seed_words=SEED_WORDS,
+          modulus=p, survivors=survivors, blocks_per_seed=chunk_blocks, reveal_chunk=fold_chunk,
+          masking_s=sum(a.elapsed_time(b) for a, b, _ in marks) / 1e3,
+          sharing_s=sum(b.elapsed_time(c) for _, b, c in marks) / 1e3,
+          participants_wall_s=participants_s, reveal_s=unmask_s, launches=masked_launches,
+          min_accepted=int(min_count), slack_recoveries=chacha_cuda.slack_recoveries, exact=exact)
+    if int(min_count) < DIM:
+        raise AssertionError("a participant's seed window held fewer than dim draws")
+    if not exact:
+        raise AssertionError("the ChaCha-masked round's unmasked reveal differs from the plain sum")
+    if masked_launches != {"limb_share_sum": n_chunks, "chacha20": want_k2}:
+        raise AssertionError(f"masked path launches {masked_launches}, expected "
+                             f"{n_chunks} limb_share_sum and {want_k2} chacha20")
+
+    # -- 6. reveal at the size K2 was written for ------------------------------
+    reveal_seeds = draw_seeds(REVEAL_SEEDS)
+    torch.cuda.synchronize()
+    chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
+    t0 = time.perf_counter()
+    total = combine_masks_device(reveal_seeds, REVEAL_DIM, p, device=dev)
+    torch.cuda.synchronize()
+    reveal_s = time.perf_counter() - t0
+    reveal_launches = chacha_cuda.launches
+    reveal_chunk = chacha_cuda.default_chunk(REVEAL_DIM)
+    want_folds = -(-REVEAL_SEEDS // reveal_chunk)
+    in_range = total.shape == (REVEAL_DIM,) and bool((total >= 0).all() and (total < p).all())
+    sample = np.sort(rng.choice(REVEAL_SEEDS, size=8, replace=False))
+    got_rows = expand_seeds_batch(seed_tensor(reveal_seeds[sample], dev), REVEAL_DIM, p).cpu().numpy()
+    rows_match = bool(np.array_equal(
+        got_rows, np.stack([expand_seed(s, REVEAL_DIM, p) for s in reveal_seeds[sample]])))
+    _line("reveal", seeds=REVEAL_SEEDS, dim=REVEAL_DIM, modulus=p, chunk=reveal_chunk,
+          folds=want_folds, blocks=REVEAL_SEEDS * chacha_cuda.window_blocks(REVEAL_DIM, p),
+          launches=reveal_launches, wall_s=reveal_s, slack_recoveries=chacha_cuda.slack_recoveries,
+          sampled_rows=sample.tolist(), rows_match=rows_match, in_range=in_range)
+    if not (rows_match and in_range):
+        raise AssertionError("reveal: sampled rows differ from expand_seed or the sum is out of range")
+    if reveal_launches != want_folds + chacha_cuda.slack_recoveries:
+        raise AssertionError(f"reveal launched chacha20 {reveal_launches} times, expected "
+                             f"{want_folds} + {chacha_cuda.slack_recoveries} recoveries")
+    # the kernel at both shapes the reveal launched it at, on those folds'
+    # seeds, and their partials against the host expansion folded in numpy
+    reveal_blocks = chacha_cuda.window_blocks(REVEAL_DIM, p)
+    tail = REVEAL_SEEDS - (want_folds - 1) * reveal_chunk
+    for label, rows in (("first", slice(0, reveal_chunk)),
+                        ("last", slice(REVEAL_SEEDS - tail, REVEAL_SEEDS))):
+        batch = seed_tensor(reveal_seeds[rows], dev)
+        got = chacha_blocks_cuda(batch, 0, reveal_blocks)
+        want = chacha_blocks_torch(batch, 0, reveal_blocks)
+        same = bool(torch.equal(got, want))
+        k2_err = max(k2_err, int((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
+        _line("parity", kernel="chacha20", case=f"reveal {label} fold {batch.shape[0]} seeds x "
+              f"{reveal_blocks} blocks", shape=list(got.shape), identical=same)
+        del got, want
+        if not same:
+            raise AssertionError(f"chacha20 differs from its plain version (reveal {label} fold)")
+        part, _ = chacha_cuda._fold_chunk(batch, REVEAL_DIM, p)
+        host = np.zeros(REVEAL_DIM, dtype=np.int64)
+        for seed in reveal_seeds[rows]:
+            host = (host + expand_seed(seed, REVEAL_DIM, p)) % p
+        fold_match = bool(np.array_equal(part.cpu().numpy(), host))
+        _line("reveal fold", fold=label, seeds=batch.shape[0], matches_host=fold_match)
+        if not fold_match:
+            raise AssertionError(f"the reveal's {label} fold differs from the host expansion")
+        if label == "first":
+            fold_batch = batch
+    _profile_chunks(lambda: chacha_cuda._fold_chunk(fold_batch, REVEAL_DIM, p), 3,
+                    label="reveal", kernel="chacha20")
+
+    # -- 7. numbers ------------------------------------------------------------
     _profile_chunks(lambda: one_chunk(acc, plain), PROFILE_CHUNKS)
     stacks = plan.limb_stacks
     L, LK, n = stacks.shape
@@ -235,6 +444,38 @@ def main(argv=None) -> int:
           plain_ms=[plain_a, plain_b], bytes=moved, int8_ops=ops, bound_ms=max(bytes_ms, ops_ms),
           library_ms=None, launches=launches, stream_wall_s=stream_s, card=card)
 
+    # K2 at the masked path's chunk shape: its own device time per launch by
+    # the profiler, and the wrapper's (key packing included) by CUDA events.
+    # Bound: keys read once, blocks written once; the operations at the
+    # card's maximum SM clock, the INT-pipe-only xors and funnel shifts on 64
+    # lanes per SM and all operations on 128, whichever takes longer
+    def k2_run():
+        return chacha_blocks_cuda(chunk_keys, 0, chunk_blocks)
+
+    def k2_plain():
+        return chacha_blocks_torch(chunk_keys, 0, chunk_blocks)
+
+    plain2_a = _time_ms(k2_plain, iters=2)
+    kernel2_a = _kernel_ms(k2_run, 20, "chacha20")
+    kernel2_b = _kernel_ms(k2_run, 20, "chacha20")
+    plain2_b = _time_ms(k2_plain, iters=2)
+    wrapper2 = _time_ms(k2_run, iters=20, warmup=3)
+    n_blocks2 = CHUNK * chunk_blocks
+    moved2 = CHUNK * 8 * 4 + n_blocks2 * 64
+    ops2 = n_blocks2 * CHACHA_OPS_PER_BLOCK
+    int_ops2 = n_blocks2 * CHACHA_INT_PIPE_OPS_PER_BLOCK
+    clock_mhz = float(_query_gpu("clocks.max.sm"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_clocks_per_ms = sms * clock_mhz * 1e3
+    ops2_ms = max(int_ops2 / INT_PIPE_LANES_PER_SM, ops2 / ISSUE_LANES_PER_SM) / sm_clocks_per_ms
+    bytes2_ms = moved2 / HBM_BYTES_PER_S * 1e3
+    kernel2_ms, plain2_ms = min(kernel2_a, kernel2_b), min(plain2_a, plain2_b)
+    _line("numbers", kernel="chacha20", shape=[CHUNK, chunk_blocks, 16],
+          kernel_ms=[kernel2_a, kernel2_b], wrapper_ms=wrapper2, plain_ms=[plain2_a, plain2_b],
+          bytes=moved2, int32_ops=ops2, int_pipe_ops=int_ops2, sms=sms, max_sm_clock_mhz=clock_mhz,
+          bound_ms=max(bytes2_ms, ops2_ms), bytes_ms=bytes2_ms, ops_ms=ops2_ms, library_ms=None,
+          launches=masked_launches["chacha20"], reveal_launches=reveal_launches, card=card)
+
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",
         "route": "cuda",
@@ -247,6 +488,19 @@ def main(argv=None) -> int:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         # no single PyTorch call computes the limb split + dots + participant sum
+        "library_ms": None,
+    }, {
+        "name": "chacha20",
+        "route": "cuda",
+        "source": "sda_tpu_torch/csrc/chacha20.cu",
+        "replaces": "sda_tpu/ops/chacha_pallas.py:47",
+        "launches": masked_launches["chacha20"],
+        "max_abs_err": k2_err,
+        "ms": kernel2_ms,
+        "plain_ms": plain2_ms,
+        "bound_ms": max(bytes2_ms, ops2_ms),
+        "bound_by": "bytes" if bytes2_ms >= ops2_ms else "operations",
+        # no PyTorch call computes ChaCha20
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of the ``sda_tpu`` device plane.
 
 The single-device secure-sum engine (share -> clerk-combine -> reconstruct)
-and its fused limb share-and-reduce kernel, written for an NVIDIA H100
+with its fused limb share-and-reduce kernel, and the ChaCha seed-masking
+expansion with its ChaCha20 keystream kernel, written for an NVIDIA H100
 (``sm_90a``). Layout mirrors ``sda_tpu`` (``ops/``, ``parallel/``,
 ``protocol/``) so each module's counterpart is easy to find.
 
