@@ -8,16 +8,22 @@ Phases, each reported on its own line:
 1. device: needs CUDA (exits nonzero without it); prints the card's name and
    power limit as ``nvidia-smi`` reports them;
 2. build: compiles every kernel from ``sda_tpu_torch/csrc`` (seconds, and
-   ptxas' register/spill report);
+   ptxas' register/spill report), and counts the int8 tensor-core
+   instructions (``IMMA``) in K1's SASS with ``cuobjdump`` (none fails);
 3. parity: each kernel against its plain PyTorch version on the card, at the
-   main path's full-width shape and at ragged shapes, bit-identical (K1 the
-   limb share-and-reduce, K2 the ChaCha20 keystream, and K2's batched mask
-   expansion against the host ``expand_seed``);
+   main path's full-width shape and at ragged shapes, bit-identical: K1 the
+   limb share-and-reduce through both of its entries (the ``(C, nb, K)``
+   values, and the secrets and randomness as two inputs) in six cases, among
+   them the full chunk and a K = 15, n = 26 scheme; K2 the ChaCha20
+   keystream, and K2's batched mask expansion against the host
+   ``expand_seed``;
 4. main path: one packed-Shamir secure-sum round of 100,000 participants x
    10,000 dims streamed in chunks of 2,000 through ``share_combine_limb_cuda``
    (the bench scheme: k=5, t=2, n=8, 31-bit p), revealed from clerks 1..7 and
-   held against an independent int64 sum on the card; then
-   ``TorchAggregator.secure_sum`` on its int64 and limb paths;
+   held against an independent int64 sum on the card (K1 reads the secrets
+   and the drawn randomness directly: no ``cat`` kernel may show in the
+   path's profile); then ``TorchAggregator.secure_sum`` on its int64 and
+   limb paths;
 5. masked path: the same round with ChaCha masking: each chunk's 128-bit
    seeds expand on the card (``expand_seeds_counts``, K2), mask the secrets
    mod p and go through K1; the recipient reconstructs the masked total,
@@ -28,9 +34,9 @@ Phases, each reported on its own line:
    one), those two folds' partials against the host ``expand_seed`` rows
    folded in numpy, 8 sampled rows against ``expand_seed``, and a profile
    of a few folds (kernel against the torch compaction);
-7. numbers: launch counts of each path's run, kernel and plain times per
-   chunk (CUDA events; K2's own time by ``torch.profiler``), the bound, the
-   paths' wall times.
+7. numbers: launch counts of each path's run, each kernel's own device time
+   per launch at the chunk shape (``torch.profiler``), its wrapper's and its
+   plain version's times (CUDA events), the bound, the paths' wall times.
 
 Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Any failed phase raises, and the script exits nonzero.
@@ -41,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -90,11 +97,12 @@ def _time_ms(fn, iters: int, warmup: int = 1) -> float:
 PROFILE_CHUNKS = 5
 
 
-def _profile_chunks(step, chunks: int, label: str = "main path", kernel: str | None = None) -> None:
+def _profile_chunks(step, chunks: int, label: str = "main path", kernel: str | None = None) -> list:
     """Where one streamed chunk's device time goes: ``torch.profiler`` over a
     few chunks of a path (after its launch counts were read), kernel time by
     name and the device's busy share of the window's wall; with ``kernel``,
-    also the split between that kernel and everything else."""
+    also the split between that kernel and everything else. Returns the
+    names of every device kernel seen."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -111,7 +119,7 @@ def _profile_chunks(step, chunks: int, label: str = "main path", kernel: str | N
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not busy_ms:
         _line("profile", path=label, chunks=chunks, wall_ms=wall_ms, device_time="not measured")
-        return
+        return [e.key for e in kernels]
     split = {}
     if kernel is not None:
         own = sum(e.self_device_time_total for e in kernels if kernel in e.key) / 1e3
@@ -122,6 +130,7 @@ def _profile_chunks(step, chunks: int, label: str = "main path", kernel: str | N
               {"name": e.key[:70], "ms_per_chunk": e.self_device_time_total / 1e3 / chunks,
                "count": e.count, "share": e.self_device_time_total / 1e3 / busy_ms}
               for e in top])
+    return [e.key for e in kernels]
 
 
 def _kernel_ms(fn, iters: int, kernel: str) -> float:
@@ -143,6 +152,15 @@ def _kernel_ms(fn, iters: int, kernel: str) -> float:
     if count != iters:
         raise AssertionError(f"the profiler saw {count} launches of {kernel}, expected {iters}")
     return sum(e.self_device_time_total for e in own) / 1e3 / count
+
+
+def _sass_count(library, opcode: str) -> int:
+    """Instructions of ``opcode`` in a built library's SASS (``cuobjdump``)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(library)], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    return sum(1 for text in sass.splitlines() if f" {opcode}" in text)
 
 
 def _query_gpu(field: str) -> str:
@@ -183,6 +201,8 @@ def main(argv=None) -> int:
         participant_limb_sums_cuda,
         participant_limb_sums_torch,
         share_combine_limb_cuda,
+        share_limb_sums_cuda,
+        share_limb_sums_torch,
     )
     from sda_tpu_torch.parallel.limbmatmul import limb_recombine_host
     from sda_tpu_torch.protocol import PackedShamirSharing
@@ -204,6 +224,12 @@ def main(argv=None) -> int:
     for name, report in reports.items():
         for text in report.strip().splitlines():
             print(f"ptxas[{name}]: {text}", flush=True)
+    k1_library = kernels.library_path("limb_share_sum")
+    imma = _sass_count(k1_library, "IMMA")
+    _line("sass", kernel="limb_share_sum", library=os.path.basename(k1_library), imma=imma,
+          dp4a=_sass_count(k1_library, "IDP"))
+    if not imma:
+        raise AssertionError("limb_share_sum's SASS holds no IMMA: the tensor cores are unused")
 
     # -- 3. kernel vs plain on the card --------------------------------------
     p, w2, w3 = find_packed_parameters(K_SECRETS, THRESHOLD, CLERKS, min_modulus_bits=30, seed=0)
@@ -215,29 +241,39 @@ def main(argv=None) -> int:
         return torch.randint(0, modulus, shape, generator=gen, dtype=torch.int32, device=dev)
 
     p26, a26, b26 = find_packed_parameters(2, 1, 26, min_modulus_bits=30, seed=0)
+    p15, a15, b15 = find_packed_parameters(10, 5, 26, min_modulus_bits=30, seed=0)
     cases = [  # (label, plan, C, dim)
         ("full", plan, CHUNK, DIM),
         ("ragged C=37 dim=23", make_plan(scheme, 23), 37, 23),
         ("ragged C=1001 dim=1003", make_plan(scheme, 1003), 1001, 1003),
         ("n=26 (4 clerk tiles)", make_plan(PackedShamirSharing(2, 26, 1, p26, a26, b26), 601), 77, 601),
         ("p=433 (L=2)", make_plan(PackedShamirSharing(3, 8, 4, 433, 354, 150), 150), 100, 150),
+        ("K=15 n=26 (Kp=16, 4 clerk tiles)",
+         make_plan(PackedShamirSharing(10, 26, 5, p15, a15, b15), 1003), 1700, 1003),
     ]
     max_err = 0
-    full_values = None
+    full_inputs = None
     for label, case_plan, C, dim in cases:
-        K = case_plan.input_size + case_plan.rand_size
-        values = canonical((C, case_plan.n_batches, K), case_plan.modulus)
-        got = participant_limb_sums_cuda(values, case_plan.limb_stacks)
-        want = participant_limb_sums_torch(values, case_plan.limb_stacks)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        max_err = max(max_err, err)
-        _line("parity", kernel="limb_share_sum", case=label, shape=list(values.shape),
-              out=list(got.shape), identical=bool(torch.equal(got, want)))
-        if not torch.equal(got, want):
-            raise AssertionError(f"limb_share_sum differs from its plain version ({label})")
+        k, t, stacks = case_plan.input_size, case_plan.rand_size, case_plan.limb_stacks
+        values = canonical((C, case_plan.n_batches, k + t), case_plan.modulus)
+        secrets = canonical((C, dim), case_plan.modulus)
+        rand = canonical((C, case_plan.n_batches, t), case_plan.modulus)
+        for entry, got, want, shape in (
+            ("values", participant_limb_sums_cuda(values, stacks),
+             participant_limb_sums_torch(values, stacks), [list(values.shape)]),
+            ("secrets+randomness", share_limb_sums_cuda(secrets, rand, stacks, k),
+             share_limb_sums_torch(secrets, rand, stacks, k), [list(secrets.shape), list(rand.shape)]),
+        ):
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got, want))
+            max_err = max(max_err, int((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
+            _line("parity", kernel="limb_share_sum", entry=entry, case=label, shape=shape,
+                  out=list(got.shape), identical=same)
+            if not same:
+                raise AssertionError(f"limb_share_sum differs from its plain version ({entry}, {label})")
         if label == "full":
-            full_values = values
+            full_inputs = (secrets, rand)
+        del values, secrets, rand
 
     rng = np.random.default_rng(args.seed)
 
@@ -428,21 +464,40 @@ def main(argv=None) -> int:
                     label="reveal", kernel="chacha20")
 
     # -- 7. numbers ------------------------------------------------------------
-    _profile_chunks(lambda: one_chunk(acc, plain), PROFILE_CHUNKS)
+    seen = _profile_chunks(lambda: one_chunk(acc, plain), PROFILE_CHUNKS)
+    cats = [name for name in seen if "CatArray" in name]
+    if cats:
+        raise AssertionError(f"the main path still concatenates K1's input: {cats}")
+    # K1 at the main path's chunk shape through the entry the path uses: its
+    # own device time per launch by the profiler, the wrapper's (checks,
+    # ctypes call, output zeroing) by CUDA events. Bound: both inputs read
+    # once, the stacks, the output written once; the real int8 MACs (the kk
+    # padding to 8 is not counted) at the int8 tensor-core peak
     stacks = plan.limb_stacks
     L, LK, n = stacks.shape
-    plain_a = _time_ms(lambda: participant_limb_sums_torch(full_values, stacks), iters=2)
-    kernel_a = _time_ms(lambda: participant_limb_sums_cuda(full_values, stacks), iters=20, warmup=3)
-    kernel_b = _time_ms(lambda: participant_limb_sums_cuda(full_values, stacks), iters=20, warmup=3)
-    plain_b = _time_ms(lambda: participant_limb_sums_torch(full_values, stacks), iters=2)
-    C, nb, K = full_values.shape
-    moved = full_values.numel() * 4 + stacks.numel() + L * nb * n * 4
+    k1_secrets, k1_rand = full_inputs
+
+    def k1_run():
+        return share_limb_sums_cuda(k1_secrets, k1_rand, stacks, K_SECRETS)
+
+    def k1_plain():
+        return share_limb_sums_torch(k1_secrets, k1_rand, stacks, K_SECRETS)
+
+    plain_a = _time_ms(k1_plain, iters=2)
+    kernel_a = _kernel_ms(k1_run, 20, "limb_share_sum")
+    kernel_b = _kernel_ms(k1_run, 20, "limb_share_sum")
+    plain_b = _time_ms(k1_plain, iters=2)
+    wrapper = _time_ms(k1_run, iters=20, warmup=3)
+    C, nb = k1_secrets.shape[0], k1_rand.shape[1]
+    moved = (k1_secrets.numel() + k1_rand.numel()) * 4 + stacks.numel() + L * nb * n * 4
     ops = 2 * C * nb * L * LK * n  # one multiply + one add per int8 MAC
     bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
     kernel_ms, plain_ms = min(kernel_a, kernel_b), min(plain_a, plain_b)
-    _line("numbers", kernel="limb_share_sum", shape=[C, nb, K], kernel_ms=[kernel_a, kernel_b],
-          plain_ms=[plain_a, plain_b], bytes=moved, int8_ops=ops, bound_ms=max(bytes_ms, ops_ms),
-          library_ms=None, launches=launches, stream_wall_s=stream_s, card=card)
+    _line("numbers", kernel="limb_share_sum", shape=[list(k1_secrets.shape), list(k1_rand.shape)],
+          kernel_ms=[kernel_a, kernel_b], wrapper_ms=wrapper, plain_ms=[plain_a, plain_b],
+          bytes=moved, int8_ops=ops, bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+          ops_ms=ops_ms, imma=imma, library_ms=None, launches=launches,
+          masked_launches=masked_launches["limb_share_sum"], stream_wall_s=stream_s, card=card)
 
     # K2 at the masked path's chunk shape: its own device time per launch by
     # the profiler, and the wrapper's (key packing included) by CUDA events.

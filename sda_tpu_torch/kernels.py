@@ -22,7 +22,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sda_tpu_torch"
 
 #: kernel name -> argtypes of its C entry point ``<name>_launch``
 KERNELS = {
-    "limb_share_sum": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "limb_share_sum": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "chacha20": [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_longlong, ctypes.c_longlong,
                  ctypes.c_void_p, ctypes.c_void_p],
 }
