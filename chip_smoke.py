@@ -36,10 +36,26 @@ Phases, each reported on its own line:
    of a few folds (kernel against the torch compaction);
 7. numbers: launch counts of each path's run, each kernel's own device time
    per launch at the chunk shape (``torch.profiler``), its wrapper's and its
-   plain version's times (CUDA events), the bound, the paths' wall times.
+   plain version's times (CUDA events), the bound, the paths' wall times;
+8. sum-first: bench.py's sum-first stream with its full check and finalize
+   at its two presets, uncut: quick (100,000 x 10,000 in chunks of 2,000,
+   31-bit p, int32 draws) and the north star (1,000,000 x 100,000 in
+   chunks of 500, 61-bit p, ``(hi, lo)`` int32 word pairs); per preset the
+   wall, exactness, the bytes floor and a profile of a few chunks;
+9. fabrics: a one-rank NCCL group in this process, then each sharded
+   fabric once at the bench scheme (``full_training_step``, the
+   all-to-all with a dropout reveal, the hierarchical round, the limb
+   accumulators through K1, the same at 61 bits, sum-first, the
+   ChaCha-masked round through K2), each held against the plain sum and,
+   with the same draws, against a single-device path's clerk sums; one
+   ``fabric`` line each, with K1's and K2's launches and the fabric's
+   nominal collective bytes; then K2 against its plain version at each
+   shape the masked round launched it at.
 
-Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
-Any failed phase raises, and the script exits nonzero.
+Then the ``{"kernels": [...]}`` line (launches: K1's on the main path and
+the fabrics, K2's on the masked path and the fabrics), and last ``{"ok":
+true, "device": ...}``. Any failed phase raises, and the script exits
+nonzero.
 """
 
 from __future__ import annotations
@@ -71,6 +87,17 @@ PARTICIPANTS, DIM, CHUNK = 100_000, 10_000, 2_000
 K_SECRETS, THRESHOLD, CLERKS = 5, 2, 8
 SEED_WORDS = 4  # 128-bit ChaCha seeds, the reference's default seed_bitsize
 REVEAL_SEEDS, REVEAL_DIM = 1_000_000, 100_000
+# bench.py's sum-first presets (bench.py:3333-3336): participants, dims,
+# chunk, min_modulus_bits; the north star is config 5 on the (hi, lo) path
+SUMFIRST = {
+    "sum-first quick": (100_000, 10_000, 2_000, 30),
+    "sum-first north star": (1_000_000, 100_000, 500, 60),
+}
+# fabric participants at DIM dims: through K1 or sum-first, and on the
+# int64 share path, whose (P, nb, K, n) int64 products and their fmod
+# (2 x 4,000 x 2,000 x 7 x 8 x 8 B) stay well under 16 GB of the H100
+# 80GB HBM3's memory
+FABRIC_STREAM_P, FABRIC_SHARE_P = 20_000, 4_000
 KNOWN_BLOCK0 = "76b8e0ada0f13d90405d6ae55386bd28bdd219b8a08ded1aa836efcc8b770dc7"
 
 
@@ -161,6 +188,381 @@ def _sass_count(library, opcode: str) -> int:
     sass = subprocess.run([tool, "--dump-sass", str(library)], check=True,
                           capture_output=True, text=True, timeout=120).stdout
     return sum(1 for text in sass.splitlines() if f" {opcode}" in text)
+
+
+def sumfirst_stream(plan, dim: int, chunk: int, generator):
+    """bench.py's sum-first stream (``--engine sumfirst --check full``, its
+    scan body at bench.py:3524-3558) on ``generator``'s device: returns
+    ``(step, acc, plain)``, where ``step(acc, plain) -> (acc, plain)`` draws
+    one chunk of ``chunk x dim`` secrets as masked bits (``nbits =
+    p.bit_length() - 1``), adds its exact limb sums to ``acc`` and the
+    independent int64 column sums (wrapping mod 2^64) to ``plain``. A field
+    that fits 31 bits draws int32 values (the narrow path), a wider one
+    ``(hi, lo)`` int32 word pairs (the pair path; a ``lo`` word whose int32
+    pattern is negative adds 2^32). Per chunk the draws come in this order:
+    the secrets, then the share randomness."""
+    import torch
+
+    from sda_tpu_torch.ops.rng import uniform_bits_device_narrow, uniform_bits_device_pair
+    from sda_tpu_torch.parallel.sumfirst import (
+        MAX_NARROW_CHUNK,
+        limb_count_sum,
+        value_limb_sums_chunk,
+        value_limb_sums_chunk_pair,
+    )
+
+    p = plan.modulus
+    nbits = p.bit_length() - 1
+    if chunk > MAX_NARROW_CHUNK:
+        raise ValueError(f"chunk {chunk} exceeds the narrow reduction's {MAX_NARROW_CHUNK} rows")
+    dev = generator.device
+    acc = torch.zeros((limb_count_sum(p), plan.n_batches, plan.input_size + plan.rand_size),
+                      dtype=torch.int64, device=dev)
+    plain = torch.zeros(dim, dtype=torch.int64, device=dev)
+
+    def mask_draw(gen, shape, modulus):
+        return uniform_bits_device_narrow(gen, shape, modulus.bit_length() - 1)
+
+    def pair_draw(gen, shape):
+        return uniform_bits_device_pair(gen, shape, nbits)
+
+    def narrow_step(acc, plain):
+        secrets = uniform_bits_device_narrow(generator, (chunk, dim), nbits)
+        acc = acc + value_limb_sums_chunk(secrets, generator, plan, draw=mask_draw)
+        # the check: plain int64 sums, not the 16-bit split under test
+        return acc, plain + torch.sum(secrets, dim=0, dtype=torch.int64)
+
+    def pair_step(acc, plain):
+        hi, lo = pair_draw(generator, (chunk, dim))
+        acc = acc + value_limb_sums_chunk_pair(hi, lo, generator, plan, pair_draw)
+        lo_sum = torch.sum(lo, dim=0, dtype=torch.int64) + ((lo < 0).sum(dim=0) << 32)
+        return acc, plain + lo_sum + (torch.sum(hi, dim=0, dtype=torch.int64) << 32)
+
+    return (pair_step if nbits > 31 else narrow_step), acc, plain
+
+
+def sumfirst_finalize(acc, plain, plan, scheme, dim: int):
+    """bench.py's finalize (bench.py:3562-3580): the exact limb sums against
+    the independent wrapping sums over every column, then the host epilogue
+    and a reconstruction from clerks 1..t+k held against the verification
+    handle. Returns the ``(dim,)`` aggregate, or None on any mismatch."""
+    import numpy as np
+
+    from sda_tpu_torch.ops.modular import positive
+    from sda_tpu_torch.parallel.sumfirst import (
+        clerk_sums_from_limb_acc,
+        exact_value_sums,
+        reconstruct_from_clerk_sums,
+    )
+
+    k = plan.input_size
+    exact = exact_value_sums(acc)
+    flat = exact[:, :k].reshape(-1)[:dim]
+    wrap = np.array([int(v) & (2**64 - 1) for v in flat], dtype=np.uint64)
+    if not np.array_equal(wrap, plain.cpu().numpy().view(np.uint64)):
+        return None
+    clerk_sums, vsums = clerk_sums_from_limb_acc(acc, plan, exact=exact)
+    indices = list(range(1, 1 + scheme.reconstruction_threshold))
+    got = positive(np.asarray(reconstruct_from_clerk_sums(clerk_sums, indices, scheme, dim)), plan.modulus)
+    want = vsums[:, :k].reshape(-1)[:dim]
+    return got if np.array_equal(got, want) else None
+
+
+def sumfirst_phase(card: str, dev, seed: int) -> None:
+    """Phase 8: bench.py's sum-first stream at each ``SUMFIRST`` preset,
+    uncut, with its full check and finalize; per preset one line (wall,
+    chunks, exactness, peak memory, the bytes floor of writing and reading
+    every drawn value once) and a profile of a few chunks."""
+    import torch
+
+    from sda_tpu_torch.ops import find_packed_parameters
+    from sda_tpu_torch.parallel import make_plan
+    from sda_tpu_torch.protocol import PackedShamirSharing
+
+    for label, (participants, dim, chunk, bits) in SUMFIRST.items():
+        p, w2, w3 = find_packed_parameters(K_SECRETS, THRESHOLD, CLERKS, min_modulus_bits=bits, seed=0)
+        scheme = PackedShamirSharing(K_SECRETS, CLERKS, THRESHOLD, p, w2, w3)
+        plan = make_plan(scheme, dim, dev)
+        step, acc, plain = sumfirst_stream(plan, dim, chunk, torch.Generator(device=dev).manual_seed(seed))
+        chunks = participants // chunk
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            acc, plain = step(acc, plain)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        got = sumfirst_finalize(acc, plain, plan, scheme, dim)
+        finalize_s = time.perf_counter() - t0
+        pair = p.bit_length() - 1 > 31
+        word_bytes = 8 if pair else 4  # a (hi, lo) pair or one int32 per value
+        drawn = (chunk * dim + chunk * plan.n_batches * THRESHOLD) * word_bytes
+        _line(label, participants=participants, dim=dim, chunk=chunk, chunks=chunks, modulus=p,
+              path="pair" if pair else "narrow", wall_s=wall_s, finalize_s=finalize_s,
+              exact=got is not None, peak_bytes=peak, drawn_bytes_per_chunk=drawn,
+              floor_bytes=2 * drawn * chunks, floor_s=2 * drawn * chunks / HBM_BYTES_PER_S,
+              card=card)
+        if got is None:
+            raise AssertionError(f"{label}: the limb sums differ from the check sums or the reveal")
+        _profile_chunks(lambda: step(acc, plain), 4, label=label)
+        del acc, plain
+
+
+class _RowDraw:
+    """Draw hook over pre-drawn ``(P, nb, t)`` randomness: successive calls
+    take successive row blocks, so a fabric that streams its rows in chunks
+    and a one-shot single-device path consume the same draws."""
+
+    def __init__(self, rand):
+        self.rand, self.row = rand, 0
+
+    def __call__(self, generator, shape, modulus):
+        block = self.rand[self.row : self.row + shape[0]]
+        self.row += shape[0]
+        if tuple(block.shape) != tuple(shape):
+            raise AssertionError(f"draw of {tuple(shape)} past the pre-drawn {tuple(self.rand.shape)}")
+        return block
+
+
+def fabric_phase(card: str, dev, seed: int) -> dict:
+    """Phase 9: each sharded fabric once under a one-rank NCCL group, at the
+    bench scheme, held against the plain sum on the card and, with the same
+    pre-drawn randomness, its clerk sums against a single-device path (the
+    sum-first engine, or, for the sum-first fabric, the per-participant
+    int64 share path). One ``fabric`` line each. Returns the kernel
+    launches the fabrics made, by kernel."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sda_tpu_torch.ops import chacha_cuda, find_packed_parameters
+    from sda_tpu_torch.ops.chacha import chacha_blocks_torch
+    from sda_tpu_torch.ops.chacha_cuda import (
+        chacha_blocks_cuda,
+        combine_masks_device,
+        default_chunk,
+        seed_tensor,
+        window_blocks,
+    )
+    from sda_tpu_torch.ops.modular import mod_sum_auto, positive
+    from sda_tpu_torch.ops.rng import uniform_bits_device, uniform_bits_device_narrow
+    from sda_tpu_torch.parallel import TorchAggregator, engine, full_training_step, limb_cuda, make_mesh, make_plan
+    from sda_tpu_torch.parallel.engine import clerk_combine_mod, masked_sum, reconstruct, share_participants
+    from sda_tpu_torch.parallel.limbmatmul import limb_recombine_host
+    from sda_tpu_torch.parallel.mesh import gather_over, shard_participants
+    from sda_tpu_torch.parallel.multihost import (
+        hierarchical_clerk_sums,
+        hierarchical_secure_sum,
+        initialize_distributed,
+        make_hybrid_mesh,
+        shard_participants_hybrid,
+    )
+    from sda_tpu_torch.parallel.sumfirst import (
+        clerk_sums_from_limb_acc,
+        clerk_sums_sum_first,
+        sharded_value_limb_sums,
+    )
+    from sda_tpu_torch.protocol import PackedShamirSharing
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    schemes = {}
+    for bits in (30, 60):
+        p, w2, w3 = find_packed_parameters(K_SECRETS, THRESHOLD, CLERKS, min_modulus_bits=bits, seed=0)
+        schemes[bits] = PackedShamirSharing(K_SECRETS, CLERKS, THRESHOLD, p, w2, w3)
+    survivors = list(range(1, 1 + schemes[30].reconstruction_threshold))  # clerk 0 dropped
+
+    def inputs(P, bits):
+        """Secrets, their plain sum mod p, pre-drawn randomness (masked bits)."""
+        p = schemes[bits].prime_modulus
+        nbits = p.bit_length() - 1
+        draw = uniform_bits_device_narrow if nbits <= 31 else uniform_bits_device
+        secrets = draw(gen, (P, DIM), nbits)
+        rand = draw(gen, (P, -(-DIM // K_SECRETS), THRESHOLD), nbits)
+        return secrets, positive(mod_sum_auto(secrets, p, axis=0), p), rand
+
+    moved = {}  # the warm call's nominal collective bytes, by fabric
+
+    def timed(fn):
+        """``fn()`` twice, synchronised: a cold call (the first use of a
+        mesh's communicators and of fresh allocator blocks), then the warm
+        one, with the kernels' launch counts and the fabric counters set to
+        0 just before it. Returns the warm call's result, its wall and the
+        cold call's."""
+        walls = []
+        for _ in range(2):
+            limb_cuda.launches = chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
+            engine.fabric_calls.clear()
+            engine.fabric_bytes.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        moved.clear()
+        moved.update(engine.fabric_bytes)
+        return out, walls[1], walls[0]
+
+    def report(fabric, P, bits, walls, exact, **extra):
+        _line("fabric", fabric=fabric, world_size=dist.get_world_size(), backend=dist.get_backend(),
+              participants=P, dim=DIM, modulus=schemes[bits].prime_modulus, wall_s=walls[0],
+              cold_s=walls[1], peak_bytes=torch.cuda.max_memory_allocated(), exact=exact,
+              fabric_bytes=dict(moved), card=card, **extra)
+        if not exact:
+            raise AssertionError(f"fabric {fabric}: differs from the plain sum or the single-device clerk sums")
+
+    def same_clerk_sums(sums, secrets, rand, plan):
+        want = clerk_sums_sum_first(secrets, None, plan, draw=_RowDraw(rand))
+        return bool(np.array_equal(positive(sums, plan.modulus).cpu().numpy(), want))
+
+    def revealed(sums, scheme, want):
+        out = reconstruct(torch.as_tensor(sums, device=dev), survivors, scheme, DIM)
+        return bool(torch.equal(positive(out.to(dev), scheme.prime_modulus), want))
+
+    launches, k2_err = {}, 0
+    scheme = schemes[30]
+    p = scheme.prime_modulus
+    with tempfile.TemporaryDirectory() as rendezvous:
+        initialize_distributed(f"file://{rendezvous}/rendezvous", 1, 0, device=dev)
+        try:
+            mesh = make_mesh(device=dev)
+            plan = make_plan(scheme, DIM, dev)
+
+            # full_training_step: int64 share path + psum, verified step
+            secrets, want, rand = inputs(FABRIC_SHARE_P, 30)
+            agg, step = full_training_step(scheme, DIM, mesh)
+            local = shard_participants(secrets, mesh)
+            torch.cuda.reset_peak_memory_stats()
+            (out, plain), *walls = timed(lambda: step(local, seed))
+            exact = bool(torch.equal(positive(out, p), want) and torch.equal(positive(plain, p), want))
+            sums = agg.sharded_clerk_sums()(local, 0, draw=_RowDraw(rand))
+            report("full_training_step", FABRIC_SHARE_P, 30, walls,
+                   exact and same_clerk_sums(sums, secrets, rand, plan))
+
+            # all_to_all: clerk-major reshard, dropout reconstruction with the
+            # dropped clerk's row corrupted
+            fn = TorchAggregator(scheme, DIM, mesh=mesh).sharded_clerk_sums_all_to_all()
+            torch.cuda.reset_peak_memory_stats()
+            sums, *walls = timed(lambda: gather_over(fn(local, seed), mesh, "p", dim=0))
+            sums = sums.clone()
+            sums[0] = -7
+            exact = revealed(sums, scheme, want)
+            sums = gather_over(fn(local, 0, draw=_RowDraw(rand)), mesh, "p", dim=0)
+            report("sharded_clerk_sums_all_to_all", FABRIC_SHARE_P, 30, walls,
+                   exact and same_clerk_sums(sums, secrets, rand, plan), survivors=survivors)
+
+            # hierarchical, every axis of size 1
+            hmesh = make_hybrid_mesh(1, 1, 1, device=dev)
+            hlocal = shard_participants_hybrid(secrets, hmesh)
+            _, hstep = hierarchical_secure_sum(scheme, DIM, hmesh)
+            torch.cuda.reset_peak_memory_stats()
+            (out, plain), *walls = timed(lambda: hstep(hlocal, seed))
+            exact = bool(torch.equal(positive(out, p), want) and torch.equal(positive(plain, p), want))
+            _, hfn = hierarchical_clerk_sums(scheme, DIM, hmesh)
+            sums = hfn(hlocal, 0, draw=_RowDraw(rand))
+            report("hierarchical_secure_sum", FABRIC_SHARE_P, 30, walls,
+                   exact and same_clerk_sums(sums, secrets, rand, plan), mesh={"h": 1, "p": 1, "d": 1})
+            del secrets, rand, local, hlocal, sums
+
+            # the limb-accumulator fabric: K1 over 2,000-participant chunks
+            secrets, want, rand = inputs(FABRIC_STREAM_P, 30)
+            local = shard_participants(secrets, mesh)
+            fn = TorchAggregator(scheme, DIM, mesh=mesh).sharded_limb_accumulators()
+            torch.cuda.reset_peak_memory_stats()
+            acc, *walls = timed(lambda: fn(local, seed))
+            k1 = limb_cuda.launches
+            exact = revealed(limb_recombine_host(acc, p).T.copy(), scheme, want)
+            acc = fn(local, 0, draw=_RowDraw(rand))
+            launches["limb_share_sum"] = k1
+            report("sharded_limb_accumulators", FABRIC_STREAM_P, 30, walls,
+                   exact and same_clerk_sums(torch.as_tensor(limb_recombine_host(acc, p).T.copy()),
+                                             secrets, rand, plan), launches={"limb_share_sum": k1})
+            want_k1 = -(-FABRIC_STREAM_P // 2_000)
+            if k1 != want_k1:
+                raise AssertionError(f"the limb fabric launched limb_share_sum {k1} times, expected {want_k1}")
+
+            # sum-first: checked against the per-participant int64 share path
+            # in 2,000-row chunks with the same draws
+            fn = sharded_value_limb_sums(plan, mesh)
+            torch.cuda.reset_peak_memory_stats()
+            acc, *walls = timed(lambda: fn(local, seed))
+            clerk, vsum = clerk_sums_from_limb_acc(acc, plan)
+            exact = revealed(clerk, scheme, want) and bool(
+                np.array_equal(vsum[:, :K_SECRETS].reshape(-1)[:DIM], want.cpu().numpy()))
+            clerk, _ = clerk_sums_from_limb_acc(fn(local, 0, draw=_RowDraw(rand)), plan)
+            per_participant = torch.zeros((CLERKS, plan.n_batches), dtype=torch.int64, device=dev)
+            row_draw = _RowDraw(rand)
+            for start in range(0, FABRIC_STREAM_P, 2_000):
+                shares = share_participants(secrets[start : start + 2_000], None, plan, draw=row_draw)
+                per_participant = torch.fmod(per_participant + clerk_combine_mod(shares, p), p)
+            same = bool(np.array_equal(positive(per_participant, p).cpu().numpy(), clerk))
+            report("sharded_value_limb_sums", FABRIC_STREAM_P, 30, walls, exact and same)
+            del secrets, rand, local, acc
+
+            # the limb-accumulator fabric at the 61-bit scheme: torch limb dots
+            wide = schemes[60]
+            pw = wide.prime_modulus
+            wplan = make_plan(wide, DIM, dev)
+            secrets, want, rand = inputs(FABRIC_SHARE_P, 60)
+            local = shard_participants(secrets, mesh)
+            fn = TorchAggregator(wide, DIM, mesh=mesh).sharded_limb_accumulators()
+            torch.cuda.reset_peak_memory_stats()
+            acc, *walls = timed(lambda: fn(local, seed))
+            k1 = limb_cuda.launches
+            exact = revealed(limb_recombine_host(acc, pw).T.copy(), wide, want)
+            acc = fn(local, 0, draw=_RowDraw(rand))
+            report("sharded_limb_accumulators (61-bit)", FABRIC_SHARE_P, 60, walls,
+                   exact and same_clerk_sums(torch.as_tensor(limb_recombine_host(acc, pw).T.copy()),
+                                             secrets, rand, wplan),
+                   launches={"limb_share_sum": k1})
+            if k1:
+                raise AssertionError("the 61-bit limb fabric launched the narrow-only limb_share_sum")
+            del secrets, rand, local, acc
+
+            # the ChaCha-masked round: K2 expands each participant's seed,
+            # the masked sums go over p, the recipient re-expands every seed
+            P = FABRIC_SHARE_P * 5 // 2
+            secrets, want, _ = inputs(P, 30)
+            seeds = np.random.default_rng(seed).integers(
+                0, 1 << 32, size=(P, SEED_WORDS), dtype=np.uint64).astype(np.uint32)
+            torch.cuda.reset_peak_memory_stats()
+
+            def masked_round():
+                seed_words = shard_participants(seeds.astype(np.int64), mesh)
+                total = masked_sum(shard_participants(secrets, mesh), seed_words, p, mesh)
+                return torch.remainder(total - combine_masks_device(seeds, DIM, p, device=dev), p)
+
+            out, *walls = timed(masked_round)
+            k2 = chacha_cuda.launches
+            want_k2 = 1 + -(-P // default_chunk(DIM)) + chacha_cuda.slack_recoveries
+            launches["chacha20"] = k2
+            report("masked round", P, 30, walls, bool(torch.equal(out, want)),
+                   launches={"chacha20": k2}, slack_recoveries=chacha_cuda.slack_recoveries)
+            if k2 != want_k2:
+                raise AssertionError(f"the masked round launched chacha20 {k2} times, expected {want_k2}")
+            del secrets, out
+            # K2 against its plain version at every shape the round gave it:
+            # all of this rank's seeds at once (masked_sum), a full reveal
+            # fold and the last one (combine_masks_device)
+            n_blocks, fold = window_blocks(DIM, p), default_chunk(DIM)
+            for label, rows in (("masked_sum", slice(0, P)), ("reveal fold", slice(0, fold)),
+                                ("reveal last fold", slice(fold * ((P - 1) // fold), P))):
+                keys = seed_tensor(seeds[rows], dev)
+                got = chacha_blocks_cuda(keys, 0, n_blocks)
+                want = chacha_blocks_torch(keys, 0, n_blocks)
+                same = bool(torch.equal(got, want))
+                k2_err = max(k2_err, int((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
+                _line("parity", kernel="chacha20", case=f"fabric {label} {keys.shape[0]} seeds x "
+                      f"{n_blocks} blocks", shape=list(got.shape), identical=same)
+                del got, want
+                if not same:
+                    raise AssertionError(f"chacha20 differs from its plain version (fabric {label})")
+        finally:
+            dist.destroy_process_group()
+    return launches, k2_err
 
 
 def _query_gpu(field: str) -> str:
@@ -531,12 +933,16 @@ def main(argv=None) -> int:
           bound_ms=max(bytes2_ms, ops2_ms), bytes_ms=bytes2_ms, ops_ms=ops2_ms, library_ms=None,
           launches=masked_launches["chacha20"], reveal_launches=reveal_launches, card=card)
 
+    # -- 8. sum-first at full width; 9. the fabrics under NCCL ------------------
+    sumfirst_phase(card, dev, args.seed)
+    fabric_launches, fabric_k2_err = fabric_phase(card, dev, args.seed)
+
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",
         "route": "cuda",
         "source": "sda_tpu_torch/csrc/limb_share_sum.cu",
         "replaces": "sda_tpu/parallel/limb_pallas.py:31",
-        "launches": launches,
+        "launches": launches + fabric_launches["limb_share_sum"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -549,8 +955,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "sda_tpu_torch/csrc/chacha20.cu",
         "replaces": "sda_tpu/ops/chacha_pallas.py:47",
-        "launches": masked_launches["chacha20"],
-        "max_abs_err": k2_err,
+        "launches": masked_launches["chacha20"] + fabric_launches["chacha20"],
+        "max_abs_err": max(k2_err, fabric_k2_err),
         "ms": kernel2_ms,
         "plain_ms": plain2_ms,
         "bound_ms": max(bytes2_ms, ops2_ms),

@@ -48,6 +48,23 @@ def uniform_bits_device(generator: torch.Generator, shape, nbits: int) -> torch.
     return _draw(generator, shape, 1 << nbits)
 
 
+def uniform_bits_device_pair(generator: torch.Generator, shape, nbits: int):
+    """``uniform_bits_device`` for ``32 <= nbits <= 62`` as a ``(hi, lo)``
+    pair of int32 tensors holding the uint32 bit patterns of the value
+    ``hi * 2**32 + lo``; ``hi`` is masked to ``nbits - 32`` bits (all zero
+    at ``nbits == 32``). No int64 tensor of the values is built: the wide
+    sum-first path (``sumfirst.value_limb_sums_chunk_pair``) consumes the
+    halves directly."""
+    if not (32 <= nbits <= 62):
+        raise ValueError(f"pair draw needs 32 <= nbits <= 62, got {nbits}")
+    hi = _draw(generator, shape, 1 << (nbits - 32), dtype=torch.int32)
+    lo = torch.randint(
+        -(1 << 31), 1 << 31, tuple(shape), generator=generator, dtype=torch.int32,
+        device=generator.device,
+    )
+    return hi, lo
+
+
 def uniform_bits_device_narrow(
     generator: torch.Generator, shape, nbits: int
 ) -> torch.Tensor:

@@ -1,3 +1,14 @@
-from .engine import AggregationPlan, TorchAggregator, make_plan
+from .engine import AggregationPlan, TorchAggregator, full_training_step, make_plan
+from .mesh import make_mesh, shard_participants
+from .sumfirst import clerk_sums_sum_first, sharded_value_limb_sums
 
-__all__ = ["AggregationPlan", "TorchAggregator", "make_plan"]
+__all__ = [
+    "AggregationPlan",
+    "TorchAggregator",
+    "clerk_sums_sum_first",
+    "full_training_step",
+    "make_mesh",
+    "make_plan",
+    "shard_participants",
+    "sharded_value_limb_sums",
+]

@@ -15,6 +15,16 @@ integer GEMM in torch), exactly the reference's form. Values live in int32
 while p < 2^31 and widen to int64 where products or sums need it. The
 streamed bench path fuses share + combine in limb space
 (``share_combine_limb``; its kernel twin is ``limb_cuda``).
+
+The sharded half (``TorchAggregator(..., mesh=...)``) runs one process per
+device over ``torch.distributed`` (``mesh.py``): the reference's ``psum``
+is ``all_reduce`` on a mesh dim's group, its ``all_to_all`` is
+``all_to_all_single`` on the ``p`` group. A fabric returns ``fn(secrets,
+key, draw=None)`` over this rank's block of the participants; its result
+keeps the reference's ``out_specs`` (replicated over ``p``, this rank's
+``d``-slice of the batch axis), and ``mesh.gather_over`` assembles the
+whole. ``key`` is an integer seed or a generator; every rank draws from
+``fold_mesh_axes(key, mesh)``.
 """
 
 from __future__ import annotations
@@ -23,12 +33,15 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..ops import shamir
+from ..ops.chacha_cuda import expand_seeds_counts
 from ..ops.modular import mod_sum_auto
 from ..protocol import AdditiveSharing, BasicShamirSharing, PackedShamirSharing
 from .limbmatmul import fold_const_limbs
+from .mesh import axis_size, gather_over, mesh_device, reduce_over
 
 
 @dataclass(frozen=True)
@@ -215,16 +228,24 @@ def reconstruct(clerk_sums: torch.Tensor, indices, scheme, dim: int) -> torch.Te
 
 
 class TorchAggregator:
-    """End-to-end single-device secure-sum engine (counterpart of
-    ``TpuAggregator``'s ``mesh=None`` path). ``device`` defaults to CUDA and
-    raises without a GPU; pass ``device="cpu"`` to run on the host."""
+    """End-to-end secure-sum engine (counterpart of ``TpuAggregator``).
 
-    def __init__(self, scheme, dim: int, device=None, use_limbs: bool = False):
+    Without a ``mesh`` it is the single-device engine: ``device`` defaults
+    to CUDA and raises without a GPU; pass ``device="cpu"`` to run on the
+    host. With a ``mesh`` (``mesh.make_mesh``; dims ``"p"`` over
+    participants, ``"d"`` over the batch axis) the sharded fabrics run on
+    this rank's device of it.
+    """
+
+    def __init__(self, scheme, dim: int, device=None, use_limbs: bool = False, mesh=None):
         self.scheme = scheme
         self.dim = dim
+        if mesh is not None and device is None:
+            device = mesh_device(mesh)
         self.plan = make_plan(scheme, dim, device)
         self.device = self.plan.device
         self.use_limbs = use_limbs
+        self.mesh = mesh
 
     def secure_sum(self, secrets, generator: torch.Generator, indices=None) -> torch.Tensor:
         """(P, dim) -> (dim,) aggregate, all on the plan's device."""
@@ -234,3 +255,239 @@ class TorchAggregator:
         if indices is None:
             indices = range(self.plan.share_count)
         return reconstruct(sums, indices, self.scheme, self.dim)
+
+    # -- sharded paths -------------------------------------------------------
+
+    def sharded_clerk_sums(self):
+        """Sharded share + combine: each rank shares its participant block,
+        sums it locally, and the ``(n, nb_local)`` partials are summed over
+        ``p``. Returns ``fn(secrets, key, draw=None) -> (n, nb_local)`` clerk
+        sums in ``(-p, p)``, replicated over ``p``."""
+        plan, mesh, use_limbs = self.plan, self.mesh, self.use_limbs
+        modulus = plan.modulus
+        _check_psum_bound(axis_size(mesh, "p"), modulus, "sharded_clerk_sums")
+        validate_d_sharding(self.mesh, self.dim, self.plan.input_size)
+
+        def fn(secrets, key, draw=None):
+            gen = fold_mesh_axes(key, mesh)
+            shares = share_participants(secrets, gen, plan, use_limbs, draw=draw)
+            partial = clerk_combine_mod(shares, modulus)  # (n, nb_local)
+            return torch.fmod(reduce_over(partial, mesh, "p"), modulus)
+
+        return instrument_fabric(fn, "sharded_clerk_sums", axis_size(mesh, "p"))
+
+    def sharded_clerk_sums_all_to_all(self):
+        """Clerk-sharded variant: the server-side transpose as an all-to-all.
+
+        Each rank shares its participant block, then the shares reshard from
+        participant-major to clerk-major over ``p`` (``all_to_all_single``
+        with the clerk axis moved to the front), and each rank sums every
+        participant for its own ``n/p`` clerks. Returns ``fn(secrets, key,
+        draw=None) -> (n/p, nb)`` clerk sums: this rank's slice of the clerk
+        axis (``gather_over(x, mesh, "p", dim=0)`` gives all ``n``). Every
+        rank of the ``p`` group must hold the same number of participants.
+        """
+        plan, mesh, use_limbs = self.plan, self.mesh, self.use_limbs
+        modulus = plan.modulus
+        p_size = axis_size(mesh, "p")
+        if plan.share_count % p_size != 0:
+            raise ValueError(
+                f"share_count {plan.share_count} must divide over mesh axis p={p_size}"
+            )
+        per_rank = plan.share_count // p_size
+
+        def fn(secrets, key, draw=None):
+            gen = fold_mesh_axes(key, mesh)
+            shares = share_participants(secrets, gen, plan, use_limbs, draw=draw)  # (Pl, n, nb)
+            Pl, n, nb = shares.shape
+            send = shares.transpose(0, 1).contiguous()  # (n, Pl, nb): clerk blocks in rank order
+            recv = torch.empty_like(send)
+            dist.all_to_all_single(recv, send, group=mesh.get_group("p"))
+            # block s holds rank s's participants for this rank's clerks
+            resharded = recv.view(p_size, per_rank, Pl, nb).transpose(1, 2)
+            return clerk_combine_mod(resharded.reshape(p_size * Pl, per_rank, nb), modulus)
+
+        return instrument_fabric(fn, "all_to_all", p_size)
+
+    def _limb_accumulator_local_step(self, psum_axes):
+        """Shared per-rank body of the limb-accumulator fabrics: fused limb
+        share + combine over this rank's participants
+        (``share_combine_limb_streamed``), then int64 partial sums over
+        ``psum_axes`` in order (``("p",)``; hybrid: ``("p", "h")``, within a
+        node before across nodes)."""
+        plan, mesh = self.plan, self.mesh
+
+        def local_step(secrets, key, draw=None):
+            acc = share_combine_limb_streamed(secrets, fold_mesh_axes(key, mesh), plan, draw)
+            for ax in psum_axes:
+                acc = reduce_over(acc, mesh, ax)
+            return acc
+
+        return local_step
+
+    def sharded_limb_accumulators(self):
+        """Limb-accumulator fabric, any modulus width: each rank's fused limb
+        share + combine, int64 ``(W, nb_local, n)`` partials summed over
+        ``p``; the exact mod-p recombine runs once on the host
+        (``limbmatmul.limb_recombine_host(acc, p).T``, then ``reconstruct``).
+        Partials stay below ``C_local * L * K * 127^2`` per rank, so int64 is
+        exact to ~5e12 participants in total. Returns ``fn(secrets, key,
+        draw=None)``, replicated over ``p``."""
+        validate_d_sharding(self.mesh, self.dim, self.plan.input_size)
+        return instrument_fabric(
+            self._limb_accumulator_local_step(("p",)), "sharded_limb_accumulators",
+            axis_size(self.mesh, "p"),
+        )
+
+
+#: invocations of each sharded fabric, by fabric name; only the fabric
+#: functions add to it
+fabric_calls: dict[str, int] = {}
+#: nominal bytes each fabric's collectives moved: its result's bytes times
+#: the participant-axis size, by fabric name
+fabric_bytes: dict[str, int] = {}
+
+
+def instrument_fabric(fn, fabric: str, p_size: int):
+    """Wrap a fabric ``fn(secrets, key, draw=None)``: count its invocations
+    and nominal collective bytes (result bytes x ``p_size``) in
+    ``fabric_calls`` / ``fabric_bytes``."""
+
+    def instrumented(secrets, key, draw=None):
+        out = fn(secrets, key, draw)
+        fabric_calls[fabric] = fabric_calls.get(fabric, 0) + 1
+        fabric_bytes[fabric] = fabric_bytes.get(fabric, 0) + out.numel() * out.element_size() * p_size
+        return out
+
+    return instrumented
+
+
+#: participants per K1 launch in ``share_combine_limb_streamed``: the main
+#: path's chunk; K1's int32 guard ``C*L*K*127^2 < 2^31`` allows 3,804 at the
+#: bench scheme (L = 5, K = 7)
+LIMB_CHUNK = 2_000
+
+
+def share_combine_limb_streamed(secrets: torch.Tensor, generator, plan: AggregationPlan,
+                                draw=None) -> torch.Tensor:
+    """``share_combine_limb`` over any number of participants: (C, d) ->
+    (W, b, n) int64. Narrow fields (p < 2^31) go through K1
+    (``limb_cuda.share_combine_limb_cuda``, its plain version on a CPU
+    tensor) in chunks of at most ``LIMB_CHUNK`` rows that keep its int32
+    guard, accumulated in int64; each chunk draws its own randomness rows.
+    Wide fields keep the torch limb dots in one pass (the kernel is
+    narrow-only, like the reference's Pallas kernel)."""
+    from .limb_cuda import share_combine_limb_cuda
+
+    p = plan.modulus
+    if p >= (1 << 31):
+        return share_combine_limb(secrets, generator, plan, draw)
+    L, LK, n = plan.limb_stacks.shape
+    chunk = max(1, min(LIMB_CHUNK, ((1 << 31) - 1) // (LK * 127 * 127)))
+    C, d = secrets.shape
+    acc = torch.zeros((L, -(-d // plan.input_size), n), dtype=torch.int64, device=secrets.device)
+    for start in range(0, C, chunk):
+        acc += share_combine_limb_cuda(secrets[start : start + chunk], generator, plan, draw=draw)
+    return acc
+
+
+def masked_sum(secrets: torch.Tensor, seed_words: torch.Tensor, modulus: int, mesh) -> torch.Tensor:
+    """The participant side of a ChaCha-masked round over ``mesh``: this
+    rank's ``(P_local, dim)`` canonical secrets masked with the expansion of
+    their ``(P_local, w)`` seed words (``expand_seeds_counts``: K2 on CUDA,
+    one launch for the whole block), summed mod m, and the partial sums
+    summed over ``p``. Returns the ``(dim,)`` masked total mod m on every
+    rank; raises if any rank's seed window held fewer than ``dim`` accepted
+    draws (about once in 1e9 rows). Counted in ``fabric_calls`` /
+    ``fabric_bytes`` as ``masked_sum``."""
+    dim = secrets.shape[1]
+    masks, counts = expand_seeds_counts(seed_words, dim, modulus)
+    total = torch.remainder(torch.sum(torch.remainder(secrets + masks, modulus), dim=0), modulus)
+    total = torch.remainder(reduce_over(total, mesh, "p"), modulus)
+    dry = reduce_over((counts.min() < dim).to(torch.int64).reshape(1), mesh, "p")
+    if int(dry) != 0:
+        raise RuntimeError("a seed window held fewer than dim accepted draws")
+    fabric_calls["masked_sum"] = fabric_calls.get("masked_sum", 0) + 1
+    fabric_bytes["masked_sum"] = (fabric_bytes.get("masked_sum", 0)
+                                  + (total.numel() + 1) * total.element_size() * axis_size(mesh, "p"))
+    return total
+
+
+def _check_psum_bound(size: int, modulus: int, where: str) -> None:
+    """A sum of ``size`` reduced partials (each in (-m, m)) in int64 wraps
+    past ``size*(m-1) < 2^63``. Wide moduli must use the limb-accumulator
+    fabrics, which sum small exact int64 accumulators and recombine mod p
+    once on the host."""
+    if size * (modulus - 1) >= 2**63:
+        raise ValueError(
+            f"{where}: psum of {size} partials overflows int64 at "
+            f"modulus {modulus}; use sharded_limb_accumulators / "
+            "hierarchical_limb_accumulators for wide moduli"
+        )
+
+
+def validate_d_sharding(mesh, dim: int, input_size: int) -> None:
+    """With a sharded dim axis every d-shard zero-pads its own tail batch, so
+    a dim that does not divide over ``input_size * d`` would misalign batch
+    boundaries and reconstruct a wrong aggregate: raise. One rule for every
+    fabric (engine, multihost, sumfirst)."""
+    d_size = axis_size(mesh, "d")
+    if d_size > 1 and dim % (input_size * d_size) != 0:
+        raise ValueError(
+            f"dim {dim} must divide over input_size {input_size} x d={d_size} "
+            "so every d-shard holds whole batches"
+        )
+
+
+def fold_mesh_axes(key, mesh) -> torch.Generator:
+    """This rank's generator: ``key`` (an integer seed, or a generator from
+    which one seed is drawn) mixed with every mesh coordinate through
+    numpy's ``SeedSequence``, on the rank's device.
+
+    Folding only one axis would hand ranks that differ on another axis the
+    same stream: with ``d`` sharded, two d-shards of one participant row
+    would draw identical share randomness for different dim slices, and a
+    clerk's shares subtracted across shards would cancel it, a zero-privacy
+    failure. The coordinates are hashed together with the seed, not added
+    to it, so no two coordinates share a stream (with a sum, ``(seed, 1,
+    0)`` and ``(seed, 0, 1)`` would). Every sharded path derives its
+    randomness here.
+    """
+    if isinstance(key, torch.Generator):
+        key = int(torch.randint(0, 1 << 62, (1,), generator=key, device=key.device))
+    coords = [int(c) for c in mesh.get_coordinate()]
+    words = np.random.SeedSequence([int(key), *coords]).generate_state(2, np.uint32)
+    gen = torch.Generator(device=mesh_device(mesh))
+    gen.manual_seed(int(words[0]) | (int(words[1]) << 32))
+    return gen
+
+
+def verified_step(agg: TorchAggregator, sums_fn):
+    """Round with a verification handle: ``fn(secrets, key, draw=None) ->
+    (aggregate, plain)``, both ``(dim,)`` on every rank: the reconstruction
+    from ``sums_fn``'s clerk sums (gathered over ``d``) and an independent
+    plaintext sum of the same secrets mod p. Shared by the single-mesh and
+    the hybrid (``multihost.py``) fabrics."""
+    mesh, plan = agg.mesh, agg.plan
+    p = plan.modulus
+    axes = [ax for ax in ("p", "h") if ax in mesh.mesh_dim_names]  # participant dims
+    for ax in axes:
+        _check_psum_bound(axis_size(mesh, ax), p, f"verified_step({ax})")
+
+    def step(secrets, key, draw=None):
+        sums = gather_over(sums_fn(secrets, key, draw), mesh, "d", dim=1)
+        out = reconstruct(sums, range(plan.share_count), agg.scheme, agg.dim)
+        plain = mod_sum_auto(secrets, p, axis=0)
+        for ax in axes:
+            plain = torch.fmod(reduce_over(plain, mesh, ax), p)
+        return out, gather_over(plain, mesh, "d", dim=0)
+
+    return step
+
+
+def full_training_step(scheme, dim: int, mesh):
+    """One full secure-aggregation round over the mesh: sharded share +
+    clerk-combine, then reconstruct + verify (``verified_step``). Returns
+    ``(agg, step)``."""
+    agg = TorchAggregator(scheme, dim, mesh=mesh)
+    return agg, verified_step(agg, agg.sharded_clerk_sums())
