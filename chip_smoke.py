@@ -50,10 +50,21 @@ Phases, each reported on its own line:
    with the same draws, against a single-device path's clerk sums; one
    ``fabric`` line each, with K1's and K2's launches and the fabric's
    nominal collective bytes; then K2 against its plain version at each
-   shape the masked round launched it at.
+   shape the masked round launched it at;
+10. fedavg round: one ChaCha-masked secure FedAvg round (``fedavg_round``)
+   of 100 updates of the FedAvg paper's MNIST CNN (1,663,370 parameters)
+   through the model plane: flatten, quantize, mask (K2), share and sum
+   (K1, at a width whose ``d % 4 == 2`` takes its unaligned copy path),
+   reveal from clerks 1..7, unmask (K2), dequantize the mean and apply it
+   to a global model; checked against host numpy and an independent field
+   sum, once under ``torch_trace`` and once timed; then K1 and K2 against
+   their plain versions and timed at the round's shapes, and a
+   ``telemetry`` line (the engine's step histogram after one
+   ``secure_sum``, the fabrics' collective bytes after phase 9).
 
-Then the ``{"kernels": [...]}`` line (launches: K1's on the main path and
-the fabrics, K2's on the masked path and the fabrics), and last ``{"ok":
+Then the ``{"kernels": [...]}`` line (launches: K1's on the main path, the
+fabrics and the FedAvg round, K2's on the masked path, the fabrics and the
+FedAvg round), and last ``{"ok":
 true, "device": ...}``. Any failed phase raises, and the script exits
 nonzero.
 """
@@ -67,6 +78,7 @@ import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and int8 tensor-core ops/s
 HBM_BYTES_PER_S = 3.35e12
@@ -99,6 +111,21 @@ SUMFIRST = {
 # 80GB HBM3's memory
 FABRIC_STREAM_P, FABRIC_SHARE_P = 20_000, 4_000
 KNOWN_BLOCK0 = "76b8e0ada0f13d90405d6ae55386bd28bdd219b8a08ded1aa836efcc8b770dc7"
+# the MNIST CNN of McMahan et al., "Communication-Efficient Learning of Deep
+# Networks from Decentralized Data" (AISTATS 2017), section 3: two 5x5
+# convolutions of 32 and 64 channels, each followed by 2x2 max pooling, a
+# 512-unit dense layer and a 10-way softmax, 1,663,370 parameters. Keys are
+# out of sorted order on purpose: the flattening must sort them as JAX does
+FEDAVG_MODEL = {
+    "dense2": {"kernel": (512, 10), "bias": (10,)},
+    "conv1": {"kernel": (5, 5, 1, 32), "bias": (32,)},
+    "dense1": {"kernel": (3136, 512), "bias": (512,)},
+    "conv2": {"kernel": (5, 5, 32, 64), "bias": (64,)},
+}
+# the paper's K = 100 clients at C = 1.0, taken in chunks of 25; the field
+# holds 100 sums of 16 fractional bits clipped at 8.0
+FEDAVG_PARTICIPANTS, FEDAVG_CHUNK = 100, 25
+FEDAVG_FRAC_BITS, FEDAVG_CLIP = 16, 8.0
 
 
 def _line(phase: str, **fields) -> None:
@@ -160,10 +187,9 @@ def _profile_chunks(step, chunks: int, label: str = "main path", kernel: str | N
     return [e.key for e in kernels]
 
 
-def _kernel_ms(fn, iters: int, kernel: str) -> float:
-    """Device time per launch of the kernel named ``kernel`` while ``fn``
-    runs ``iters`` times: its own time by ``torch.profiler``, without the
-    host work of the wrapper that launches it."""
+def _profiled(fn, iters: int, kernel: str) -> tuple[int, float]:
+    """``torch.profiler`` over ``iters`` runs of ``fn``: the launches of the
+    kernel named ``kernel`` it saw and their own device time in ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -175,10 +201,42 @@ def _kernel_ms(fn, iters: int, kernel: str) -> float:
             fn()
         torch.cuda.synchronize()
     own = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
-    count = sum(e.count for e in own)
+    return sum(e.count for e in own), sum(e.self_device_time_total for e in own) / 1e3
+
+
+def _kernel_ms(fn, iters: int, kernel: str) -> float:
+    """Device time per launch of the kernel named ``kernel`` while ``fn``
+    runs ``iters`` times: its own time by ``torch.profiler``, without the
+    host work of the wrapper that launches it."""
+    count, total_ms = _profiled(fn, iters, kernel)
     if count != iters:
         raise AssertionError(f"the profiler saw {count} launches of {kernel}, expected {iters}")
-    return sum(e.self_device_time_total for e in own) / 1e3 / count
+    return total_ms / count
+
+
+def _k1_bound(secrets, rand, stacks):
+    """K1's work on these inputs and the least time it could take: both
+    inputs read once, the stacks, the output written once; the real int8
+    MACs (the kk padding to 8 is not counted, one multiply + one add each)
+    at the int8 tensor-core peak. Returns (bytes, ops, bytes_ms, ops_ms)."""
+    L, LK, n = stacks.shape
+    C, nb = secrets.shape[0], rand.shape[1]
+    moved = (secrets.numel() + rand.numel()) * 4 + stacks.numel() + L * nb * n * 4
+    ops = 2 * C * nb * L * LK * n
+    return moved, ops, moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+
+
+def _k2_bound(seeds: int, n_blocks: int, sm_clocks_per_ms: float):
+    """K2's work for ``seeds`` x ``n_blocks`` keystream blocks and the least
+    time it could take: keys read once, blocks written once; the operations
+    at the card's maximum SM clock, the INT-pipe-only xors and funnel shifts
+    on 64 lanes per SM and all operations on 128, whichever takes longer.
+    Returns (bytes, ops, int_pipe_ops, bytes_ms, ops_ms)."""
+    blocks = seeds * n_blocks
+    moved = seeds * 8 * 4 + blocks * 64
+    ops, int_ops = blocks * CHACHA_OPS_PER_BLOCK, blocks * CHACHA_INT_PIPE_OPS_PER_BLOCK
+    ops_ms = max(int_ops / INT_PIPE_LANES_PER_SM, ops / ISSUE_LANES_PER_SM) / sm_clocks_per_ms
+    return moved, ops, int_ops, moved / HBM_BYTES_PER_S * 1e3, ops_ms
 
 
 def _sass_count(library, opcode: str) -> int:
@@ -389,21 +447,23 @@ def fabric_phase(card: str, dev, seed: int) -> dict:
     def timed(fn):
         """``fn()`` twice, synchronised: a cold call (the first use of a
         mesh's communicators and of fresh allocator blocks), then the warm
-        one, with the kernels' launch counts and the fabric counters set to
-        0 just before it. Returns the warm call's result, its wall and the
-        cold call's."""
+        one, with the kernels' launch counts set to 0 just before it.
+        Returns the warm call's result, its wall and the cold call's; the
+        warm call's growth of the registry's fabric bytes goes to
+        ``moved``."""
         walls = []
         for _ in range(2):
             limb_cuda.launches = chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
-            engine.fabric_calls.clear()
-            engine.fabric_bytes.clear()
+            calls, before = engine.fabric_calls(), engine.fabric_bytes()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         moved.clear()
-        moved.update(engine.fabric_bytes)
+        called = engine.fabric_calls()
+        moved.update({f: n - before.get(f, 0) for f, n in engine.fabric_bytes().items()
+                      if called[f] > calls.get(f, 0)})
         return out, walls[1], walls[0]
 
     def report(fabric, P, bits, walls, exact, **extra):
@@ -563,6 +623,310 @@ def fabric_phase(card: str, dev, seed: int) -> dict:
         finally:
             dist.destroy_process_group()
     return launches, k2_err
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def fedavg_round(updates, spec, scheme, seeds, global_model, generator, chunk: int = FEDAVG_CHUNK):
+    """One ChaCha-masked secure FedAvg round on ``generator``'s device,
+    through the port's entry points. Each of the ``P`` update pytrees is
+    flattened and held to ``global_model``'s layout; per chunk of ``chunk``
+    participants the updates are quantized (``spec.quantize``), masked mod p
+    with the expansion of their ``(P, w)`` uint32 ``seeds``
+    (``expand_seeds_counts``: K2) and shared and summed over participants
+    (``share_combine_limb_cuda``: K1) into an int64 limb accumulator mod p.
+    The recipient recombines the limbs, reconstructs from clerks 1..t+k
+    (clerk 0 dropped), subtracts the re-expanded masks
+    (``combine_masks_device``: K2), and applies the mean update
+    (``dequantize_mean``) to the global model (``fedavg_apply``). On CPU
+    tensors the kernels' plain versions run.
+
+    Returns a dict: ``new_global``, ``mean`` (pytrees), ``field_sum``
+    (canonical ``(dim,)`` int64), ``residues`` (the ``(P, dim)`` quantized
+    updates) and the synchronised seconds of each stage and of the whole.
+    """
+    import torch
+
+    from sda_tpu_torch.models import dequantize_mean, fedavg_apply, flatten_pytree, tree_layout
+    from sda_tpu_torch.ops.chacha_cuda import combine_masks_device, expand_seeds_counts, seed_tensor
+    from sda_tpu_torch.ops.modular import positive
+    from sda_tpu_torch.parallel import make_plan
+    from sda_tpu_torch.parallel.engine import reconstruct
+    from sda_tpu_torch.parallel.limb_cuda import share_combine_limb_cuda
+    from sda_tpu_torch.parallel.limbmatmul import limb_recombine
+
+    dev = generator.device
+    p = spec.modulus
+    treedef, shapes, dim = tree_layout(global_model)
+    plan = make_plan(scheme, dim, dev)
+    seed_words = seed_tensor(seeds, dev)
+    survivors = list(range(1, 1 + scheme.reconstruction_threshold))
+    P = len(updates)
+    residues = torch.empty((P, dim), dtype=torch.int64, device=dev)
+    acc = torch.zeros((plan.limb_stacks.shape[0], plan.n_batches, plan.share_count),
+                      dtype=torch.int64, device=dev)
+    seconds = dict.fromkeys(("quantize_s", "masking_s", "sharing_s", "reveal_s", "dequantize_s"), 0.0)
+
+    def stage(name, fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        seconds[name] += time.perf_counter() - t0
+        return out
+
+    def quantize(rows):
+        flats = []
+        for tree in updates[rows]:
+            flat, tdef, tshapes = flatten_pytree(tree, dev)
+            if tdef != treedef or tshapes != shapes:
+                raise ValueError("an update's layout differs from the global model's")
+            flats.append(flat)
+        return spec.quantize(torch.stack(flats))
+
+    def mask(rows, q):
+        masks, counts = expand_seeds_counts(seed_words[rows], dim, p)
+        if int(counts.min()) < dim:
+            raise AssertionError("a participant's seed window held fewer than dim draws")
+        return torch.remainder(q + masks, p).to(torch.int32)
+
+    def reveal():
+        masked_total = reconstruct(limb_recombine(acc, p).T, survivors, scheme, dim)
+        masks = combine_masks_device(seeds, dim, p, device=dev)
+        return positive(torch.fmod(masked_total - masks, p), p)
+
+    def finish(field_sum):
+        mean = dequantize_mean(field_sum, P, spec, treedef, shapes)
+        return mean, fedavg_apply(global_model, mean, device=dev)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    for start in range(0, P, chunk):
+        rows = slice(start, min(start + chunk, P))
+        q = stage("quantize_s", lambda: quantize(rows))
+        residues[rows] = q
+        masked = stage("masking_s", lambda: mask(rows, q))
+        acc = stage("sharing_s", lambda: torch.fmod(acc + share_combine_limb_cuda(masked, generator, plan), p))
+    field_sum = stage("reveal_s", reveal)
+    mean, new_global = stage("dequantize_s", lambda: finish(field_sum))
+    seconds["wall_s"] = time.perf_counter() - t0
+    return {"new_global": new_global, "mean": mean, "field_sum": field_sum, "residues": residues,
+            "seconds": seconds}
+
+
+def _sorted_flat(tree) -> "np.ndarray":
+    """A two-level dict of tensors as one host float64 vector in sorted key
+    order, written out by hand: the check's own statement of JAX's order."""
+    import numpy as np
+
+    return np.concatenate([tree[layer][name].detach().cpu().numpy().astype(np.float64).ravel()
+                           for layer in sorted(tree) for name in sorted(tree[layer])])
+
+
+def _tree_views(row, model: dict) -> dict:
+    """A ``model``-shaped pytree (insertion order as in ``model``) of views
+    of ``row``, whose coordinates are laid out in sorted key order."""
+    import math
+
+    offsets, offset = {}, 0
+    for layer in sorted(model):
+        for name in sorted(model[layer]):
+            offsets[layer, name] = offset
+            offset += math.prod(model[layer][name])
+    return {layer: {name: row[offsets[layer, name] : offsets[layer, name] + math.prod(shape)].view(shape)
+                    for name, shape in leaves.items()} for layer, leaves in model.items()}
+
+
+def fedavg_phase(card: str, dev, seed: int, main_scheme, sm_clocks_per_ms: float):
+    """Phase 10: a ChaCha-masked FedAvg round of ``FEDAVG_PARTICIPANTS``
+    updates of the ``FEDAVG_MODEL`` CNN (``fedavg_round``), once under
+    ``torch_trace`` and once timed with the kernels' launch counts read;
+    checked (a) quantization against host numpy, (b) the revealed field sum
+    against an int64 sum of the residues, (c) the mean within the
+    quantization bound of the host mean of the clipped updates, (d)
+    ``fedavg_apply`` against a host sum, (e) the launch counts; then K1 and
+    K2 against their plain versions at every shape the round launched them
+    at, their times at those shapes, and a ``telemetry`` line. Returns
+    ``(k1 launches, k2 launches, k1 max_abs_err, k2 max_abs_err)``."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from sda_tpu_torch import telemetry
+    from sda_tpu_torch.models import QuantizationSpec
+    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.ops.chacha import chacha_blocks_torch
+    from sda_tpu_torch.ops.chacha_cuda import chacha_blocks_cuda, default_chunk, seed_tensor, window_blocks
+    from sda_tpu_torch.ops.modular import positive
+    from sda_tpu_torch.parallel import TorchAggregator, engine, limb_cuda, make_plan
+    from sda_tpu_torch.parallel.limb_cuda import share_limb_sums_cuda, share_limb_sums_torch
+    from sda_tpu_torch.utils import torch_trace
+
+    spec, scheme = QuantizationSpec.fitted(FEDAVG_FRAC_BITS, FEDAVG_CLIP, FEDAVG_PARTICIPANTS)
+    p = spec.modulus
+    P = FEDAVG_PARTICIPANTS
+    dim = sum(math.prod(s) for leaves in FEDAVG_MODEL.values() for s in leaves.values())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flat_updates = 2.0 * torch.randn((P, dim), generator=gen, dtype=torch.float64, device=dev)
+    updates = [_tree_views(row, FEDAVG_MODEL) for row in flat_updates]
+    global_model = {layer: {name: 0.05 * torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+                            for name, shape in leaves.items()} for layer, leaves in FEDAVG_MODEL.items()}
+    seeds = np.random.default_rng(seed).integers(
+        0, 1 << 32, size=(P, SEED_WORDS), dtype=np.uint64).astype(np.uint32)
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        with torch_trace(log_dir) as prof:
+            traced = fedavg_round(updates, spec, scheme, seeds, global_model, gen)
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        traces = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+        trace_bytes = sum(os.path.getsize(f) for f in traces)
+        kernel_events = sum(Path(f).read_text().count('"cat": "kernel"') for f in traces)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    limb_cuda.launches = chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
+    out = fedavg_round(updates, spec, scheme, seeds, global_model, gen)
+    launches = {"limb_share_sum": limb_cuda.launches, "chacha20": chacha_cuda.launches}
+    recoveries = chacha_cuda.slack_recoveries
+    peak = torch.cuda.max_memory_allocated()
+
+    # (a) quantization against host numpy on the same updates
+    host = flat_updates.cpu().numpy()
+    clipped = np.clip(host, -FEDAVG_CLIP, FEDAVG_CLIP)
+    quantized = np.rint(clipped * 2.0**FEDAVG_FRAC_BITS).astype(np.int64) % p
+    quantize_ok = bool(np.array_equal(out["residues"].cpu().numpy(), quantized))
+    del quantized
+    # (b) the revealed field sum against an int64 sum of the residues
+    field_sum = out["field_sum"]
+    sum_ok = bool(torch.equal(field_sum, torch.sum(out["residues"], dim=0) % p))
+    # (c) the mean against the host mean of the clipped updates
+    mean = _sorted_flat(out["mean"])
+    max_mean_err = float(np.abs(mean - clipped.mean(axis=0)).max())
+    shapes_ok = all(tuple(out["mean"][layer][name].shape) == shape
+                    for layer, leaves in FEDAVG_MODEL.items() for name, shape in leaves.items())
+    # (d) fedavg_apply against a host float64 sum, leaf by leaf
+    apply_ok = all(np.array_equal(
+        out["new_global"][layer][name].cpu().numpy(),
+        global_model[layer][name].cpu().numpy().astype(np.float64) + out["mean"][layer][name].cpu().numpy())
+        for layer, leaves in FEDAVG_MODEL.items() for name in leaves)
+    same_as_traced = bool(torch.equal(traced["field_sum"], field_sum))
+    traced_wall_ms = traced["seconds"]["wall_s"] * 1e3
+    del host, clipped, traced
+    # (e) launches: one K1 and one K2 per chunk, one K2 per reveal fold
+    chunks = -(-P // FEDAVG_CHUNK)
+    fold = default_chunk(dim)
+    want = {"limb_share_sum": chunks, "chacha20": chunks + -(-P // fold) + recoveries}
+    exact = quantize_ok and sum_ok and shapes_ok and apply_ok and same_as_traced
+    _line("fedavg round", participants=P, dim=dim, modulus=p, omega_secrets=scheme.omega_secrets,
+          omega_shares=scheme.omega_shares, frac_bits=FEDAVG_FRAC_BITS, clip=FEDAVG_CLIP, chunk=FEDAVG_CHUNK,
+          reveal_chunk=fold, **out["seconds"], launches=launches, slack_recoveries=recoveries,
+          max_mean_err=max_mean_err, bound=2.0 ** -(FEDAVG_FRAC_BITS + 1), exact=exact,
+          checks={"quantize": quantize_ok, "field_sum": sum_ok, "mean_shapes": shapes_ok,
+                  "fedavg_apply": apply_ok, "traced_round_same": same_as_traced},
+          peak_bytes=peak, trace_files=len(traces), trace_bytes=trace_bytes,
+          trace_kernel_events=kernel_events, traced_wall_ms=traced_wall_ms,
+          traced_device_busy_ms=busy_ms, traced_busy_share=busy_ms / traced_wall_ms, card=card)
+    if not exact:
+        raise AssertionError("fedavg round: a check failed")
+    if max_mean_err > 2.0 ** -(FEDAVG_FRAC_BITS + 1):
+        raise AssertionError(f"fedavg round: mean error {max_mean_err} above the quantization bound")
+    if launches != want:
+        raise AssertionError(f"fedavg round launched {launches}, expected {want}")
+    if not kernel_events:
+        raise AssertionError("the fedavg round's trace holds no device kernel")
+    del out, updates, flat_updates
+
+    # K1 against its plain version at the round's shape: d % 4 == 2, so every
+    # stage takes the kernel's unaligned copy path, not TMA
+    plan = make_plan(scheme, dim, dev)
+    stacks = plan.limb_stacks
+    secrets = torch.randint(0, p, (FEDAVG_CHUNK, dim), generator=gen, dtype=torch.int32, device=dev)
+    rand = torch.randint(0, p, (FEDAVG_CHUNK, plan.n_batches, plan.rand_size), generator=gen,
+                         dtype=torch.int32, device=dev)
+    got = share_limb_sums_cuda(secrets, rand, stacks, plan.input_size)
+    want_k1 = share_limb_sums_torch(secrets, rand, stacks, plan.input_size)
+    k1_err = int((got.to(torch.int64) - want_k1.to(torch.int64)).abs().max())
+    same = bool(torch.equal(got, want_k1))
+    _line("parity", kernel="limb_share_sum", entry="secrets+randomness", case=f"fedavg chunk (d % 4 = {dim % 4})",
+          shape=[list(secrets.shape), list(rand.shape)], out=list(got.shape), identical=same)
+    del got, want_k1
+    if not same:
+        raise AssertionError("limb_share_sum differs from its plain version (fedavg chunk)")
+    # K2 against its plain version at the masking chunk and both reveal folds
+    n_blocks = window_blocks(dim, p)
+    k2_err = 0
+    for label, rows in (("masking chunk", slice(0, FEDAVG_CHUNK)), ("reveal fold", slice(0, fold)),
+                        ("reveal last fold", slice(fold * ((P - 1) // fold), P))):
+        keys = seed_tensor(seeds[rows], dev)
+        got = chacha_blocks_cuda(keys, 0, n_blocks)
+        want_k2 = chacha_blocks_torch(keys, 0, n_blocks)
+        same = bool(torch.equal(got, want_k2))
+        k2_err = max(k2_err, int((got.to(torch.int64) - want_k2.to(torch.int64)).abs().max()))
+        _line("parity", kernel="chacha20", case=f"fedavg {label} {keys.shape[0]} seeds x {n_blocks} blocks",
+              shape=list(got.shape), identical=same)
+        del got, want_k2
+        if not same:
+            raise AssertionError(f"chacha20 differs from its plain version (fedavg {label})")
+
+    # each kernel's own time at the round's shapes, its plain version's, its bound
+    # (K2's own time by the profiler, which saw only half of its launches
+    # at this shape in one run, is printed beside its wrapper's by CUDA
+    # events, not asserted)
+    def k1():
+        return share_limb_sums_cuda(secrets, rand, stacks, plan.input_size)
+
+    k1_ms = [_kernel_ms(k1, 10, "limb_share_sum") for _ in range(2)]
+    k1_wrapper = _time_ms(k1, iters=10, warmup=2)
+    k1_plain = _time_ms(lambda: share_limb_sums_torch(secrets, rand, stacks, plan.input_size), iters=2)
+    moved, ops, bytes_ms, ops_ms = _k1_bound(secrets, rand, stacks)
+    _line("numbers", kernel="limb_share_sum", path="fedavg round", shape=[list(secrets.shape), list(rand.shape)],
+          kernel_ms=k1_ms, wrapper_ms=k1_wrapper, plain_ms=k1_plain, bytes=moved, int8_ops=ops,
+          bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms,
+          launches=launches["limb_share_sum"], card=card)
+    keys = seed_tensor(seeds[:FEDAVG_CHUNK], dev)
+
+    def k2():
+        return chacha_blocks_cuda(keys, 0, n_blocks)
+
+    k2_wrapper = [_time_ms(k2, iters=10, warmup=2) for _ in range(2)]
+    seen, seen_ms = _profiled(k2, 10, "chacha20")
+    k2_plain = _time_ms(lambda: chacha_blocks_torch(keys, 0, n_blocks), iters=2)
+    moved, ops, int_ops, bytes_ms, ops_ms = _k2_bound(FEDAVG_CHUNK, n_blocks, sm_clocks_per_ms)
+    _line("numbers", kernel="chacha20", path="fedavg round", shape=[FEDAVG_CHUNK, n_blocks, 16],
+          wrapper_ms=k2_wrapper, profiler={"launches_seen": seen, "of": 10,
+                                           "ms_per_seen": seen_ms / seen if seen else None},
+          plain_ms=k2_plain, bytes=moved, int32_ops=ops, int_pipe_ops=int_ops,
+          bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms,
+          launches=launches["chacha20"], card=card)
+    del secrets, rand
+
+    # telemetry: the fabrics' collective bytes accumulated over phase 9, then
+    # the step histogram and span of one secure_sum at the main path's scheme
+    psum_bytes = engine.fabric_bytes()
+    telemetry.reset()
+    mp = main_scheme.prime_modulus
+    small = torch.randint(0, mp, (2_000, 1_000), generator=gen, dtype=torch.int64, device=dev)
+    agg = TorchAggregator(main_scheme, 1_000)
+    got = positive(agg.secure_sum(small, gen, indices=list(range(1, 1 + main_scheme.reconstruction_threshold))), mp)
+    snap = telemetry.snapshot()
+    steps = {h["labels"]["step"]: h["count"] for h in snap["histograms"] if h["name"] == engine.STEP_SECONDS}
+    spans = [{"name": s["name"], "attrs": s["attrs"]} for s in snap["spans"]]
+    ok = (bool(torch.equal(got, torch.sum(small, dim=0) % mp))
+          and steps == {"share": 1, "combine": 1, "reconstruct": 1}
+          and spans == [{"name": "engine.secure_sum", "attrs": {"dim": 1_000}}])
+    _line("telemetry", enabled=snap["enabled"], sda_engine_step_seconds=steps, spans=spans,
+          sda_engine_psum_bytes_total=psum_bytes, ok=ok)
+    if not ok:
+        raise AssertionError("telemetry: secure_sum's steps or span differ from one call's")
+    return launches["limb_share_sum"], launches["chacha20"], k1_err, k2_err
 
 
 def _query_gpu(field: str) -> str:
@@ -872,11 +1236,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"the main path still concatenates K1's input: {cats}")
     # K1 at the main path's chunk shape through the entry the path uses: its
     # own device time per launch by the profiler, the wrapper's (checks,
-    # ctypes call, output zeroing) by CUDA events. Bound: both inputs read
-    # once, the stacks, the output written once; the real int8 MACs (the kk
-    # padding to 8 is not counted) at the int8 tensor-core peak
+    # ctypes call, output zeroing) by CUDA events, against ``_k1_bound``
     stacks = plan.limb_stacks
-    L, LK, n = stacks.shape
     k1_secrets, k1_rand = full_inputs
 
     def k1_run():
@@ -890,10 +1251,7 @@ def main(argv=None) -> int:
     kernel_b = _kernel_ms(k1_run, 20, "limb_share_sum")
     plain_b = _time_ms(k1_plain, iters=2)
     wrapper = _time_ms(k1_run, iters=20, warmup=3)
-    C, nb = k1_secrets.shape[0], k1_rand.shape[1]
-    moved = (k1_secrets.numel() + k1_rand.numel()) * 4 + stacks.numel() + L * nb * n * 4
-    ops = 2 * C * nb * L * LK * n  # one multiply + one add per int8 MAC
-    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    moved, ops, bytes_ms, ops_ms = _k1_bound(k1_secrets, k1_rand, stacks)
     kernel_ms, plain_ms = min(kernel_a, kernel_b), min(plain_a, plain_b)
     _line("numbers", kernel="limb_share_sum", shape=[list(k1_secrets.shape), list(k1_rand.shape)],
           kernel_ms=[kernel_a, kernel_b], wrapper_ms=wrapper, plain_ms=[plain_a, plain_b],
@@ -902,10 +1260,8 @@ def main(argv=None) -> int:
           masked_launches=masked_launches["limb_share_sum"], stream_wall_s=stream_s, card=card)
 
     # K2 at the masked path's chunk shape: its own device time per launch by
-    # the profiler, and the wrapper's (key packing included) by CUDA events.
-    # Bound: keys read once, blocks written once; the operations at the
-    # card's maximum SM clock, the INT-pipe-only xors and funnel shifts on 64
-    # lanes per SM and all operations on 128, whichever takes longer
+    # the profiler, and the wrapper's (key packing included) by CUDA events,
+    # against ``_k2_bound``
     def k2_run():
         return chacha_blocks_cuda(chunk_keys, 0, chunk_blocks)
 
@@ -917,15 +1273,10 @@ def main(argv=None) -> int:
     kernel2_b = _kernel_ms(k2_run, 20, "chacha20")
     plain2_b = _time_ms(k2_plain, iters=2)
     wrapper2 = _time_ms(k2_run, iters=20, warmup=3)
-    n_blocks2 = CHUNK * chunk_blocks
-    moved2 = CHUNK * 8 * 4 + n_blocks2 * 64
-    ops2 = n_blocks2 * CHACHA_OPS_PER_BLOCK
-    int_ops2 = n_blocks2 * CHACHA_INT_PIPE_OPS_PER_BLOCK
     clock_mhz = float(_query_gpu("clocks.max.sm"))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sm_clocks_per_ms = sms * clock_mhz * 1e3
-    ops2_ms = max(int_ops2 / INT_PIPE_LANES_PER_SM, ops2 / ISSUE_LANES_PER_SM) / sm_clocks_per_ms
-    bytes2_ms = moved2 / HBM_BYTES_PER_S * 1e3
+    moved2, ops2, int_ops2, bytes2_ms, ops2_ms = _k2_bound(CHUNK, chunk_blocks, sm_clocks_per_ms)
     kernel2_ms, plain2_ms = min(kernel2_a, kernel2_b), min(plain2_a, plain2_b)
     _line("numbers", kernel="chacha20", shape=[CHUNK, chunk_blocks, 16],
           kernel_ms=[kernel2_a, kernel2_b], wrapper_ms=wrapper2, plain_ms=[plain2_a, plain2_b],
@@ -936,14 +1287,17 @@ def main(argv=None) -> int:
     # -- 8. sum-first at full width; 9. the fabrics under NCCL ------------------
     sumfirst_phase(card, dev, args.seed)
     fabric_launches, fabric_k2_err = fabric_phase(card, dev, args.seed)
+    # -- 10. a ChaCha-masked FedAvg round at the FedAvg paper's CNN width ----
+    fedavg_k1, fedavg_k2, fedavg_k1_err, fedavg_k2_err = fedavg_phase(
+        card, dev, args.seed, scheme, sm_clocks_per_ms)
 
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",
         "route": "cuda",
         "source": "sda_tpu_torch/csrc/limb_share_sum.cu",
         "replaces": "sda_tpu/parallel/limb_pallas.py:31",
-        "launches": launches + fabric_launches["limb_share_sum"],
-        "max_abs_err": max_err,
+        "launches": launches + fabric_launches["limb_share_sum"] + fedavg_k1,
+        "max_abs_err": max(max_err, fedavg_k1_err),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
@@ -955,8 +1309,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "sda_tpu_torch/csrc/chacha20.cu",
         "replaces": "sda_tpu/ops/chacha_pallas.py:47",
-        "launches": masked_launches["chacha20"] + fabric_launches["chacha20"],
-        "max_abs_err": max(k2_err, fabric_k2_err),
+        "launches": masked_launches["chacha20"] + fabric_launches["chacha20"] + fedavg_k2,
+        "max_abs_err": max(k2_err, fabric_k2_err, fedavg_k2_err),
         "ms": kernel2_ms,
         "plain_ms": plain2_ms,
         "bound_ms": max(bytes2_ms, ops2_ms),

@@ -1,3 +1,4 @@
 from .params import find_packed_parameters, is_prime
+from .shamir import verify_scheme
 
-__all__ = ["find_packed_parameters", "is_prime"]
+__all__ = ["find_packed_parameters", "is_prime", "verify_scheme"]

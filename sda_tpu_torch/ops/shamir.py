@@ -1,6 +1,7 @@
 """Packed and basic Shamir sharing as precomputed mod-p linear maps.
 
-Copy of the parts of ``sda_tpu/ops/shamir.py`` the engine uses. One
+Copy of the parts of ``sda_tpu/ops/shamir.py`` the engine and the model
+plane use (``verify_scheme`` checks ``QuantizationSpec.fitted``'s scheme). One
 degree-(t+k-1) polynomial hides k secrets: its values on the order-(k+t+1)
 secrets domain are ``[v_0, s_1..s_k, r_1..r_t]`` with v_0 chosen so the top
 coefficient vanishes; clerk i holds the evaluation at omega_shares^(i+1).
@@ -9,6 +10,9 @@ into an (n x (k+t)) share matrix and a (k x R) reconstruction matrix.
 """
 
 from __future__ import annotations
+
+import itertools
+import math
 
 import numpy as np
 
@@ -110,3 +114,67 @@ def reconstruct_clerk_sums_host(clerk_sums, indices, scheme, dim: int) -> np.nda
     rows = np.asarray(clerk_sums)[list(indices)]  # (R, B)
     secrets = reconstruct_batches(rows.T, L, scheme.prime_modulus)  # (B, k)
     return np.asarray(secrets).reshape(-1)[:dim]
+
+
+def _mod_rank(M: np.ndarray, p: int) -> int:
+    """Rank of a small integer matrix over F_p (exact Gaussian elimination
+    with python ints; matrices here are at most committee-sized)."""
+    M = [[int(x) % p for x in row] for row in np.asarray(M)]
+    rows, cols = len(M), len(M[0]) if M else 0
+    rank = 0
+    for col in range(cols):
+        pivot = next((r for r in range(rank, rows) if M[r][col] % p), None)
+        if pivot is None:
+            continue
+        M[rank], M[pivot] = M[pivot], M[rank]
+        inv = pow(M[rank][col], -1, p)
+        M[rank] = [(x * inv) % p for x in M[rank]]
+        for r in range(rows):
+            if r != rank and M[r][col]:
+                f = M[r][col]
+                M[r] = [(a - f * b) % p for a, b in zip(M[r], M[rank])]
+        rank += 1
+        if rank == rows:
+            break
+    return rank
+
+
+def verify_scheme(scheme, max_subsets: int = 20000) -> None:
+    """Check a Shamir scheme's two promises over F_p; raises ``ValueError``
+    on any violation.
+
+    1. t-privacy: for every t-subset of share rows, the randomness columns
+       (k..k+t) of the share matrix restricted to those rows have rank t,
+       so any t shares are a bijective image of the randomness and hide
+       the secrets.
+    2. reconstruction: every ``reconstruction_threshold``-subset of share
+       rows has full rank k+t, so ``reconstruction_matrix`` exists for any
+       surviving subset.
+
+    ``max_subsets`` bounds the committee-sized subset counts (n choose t).
+    """
+    S = share_matrix(scheme)  # (n, k+t)
+    n = S.shape[0]
+    k = 1 if _is_basic(scheme) else scheme.secret_count
+    t = scheme.privacy_threshold
+    p = scheme.prime_modulus
+    R = reconstruct_limit(scheme)
+    for size, what in ((t, "privacy"), (R, "reconstruction")):
+        count = math.comb(n, size)
+        if count > max_subsets:
+            raise ValueError(
+                f"{what} check needs {count} subsets > max_subsets={max_subsets}"
+            )
+    for subset in itertools.combinations(range(n), t):
+        if _mod_rank(S[list(subset), k:], p) != t:
+            raise ValueError(
+                f"t-privacy violated: share rows {subset} are not fully "
+                f"randomized (rank < {t}) — {t} colluding clerks could "
+                f"learn about the secrets"
+            )
+    for subset in itertools.combinations(range(n), R):
+        if _mod_rank(S[list(subset), :], p) != k + t:
+            raise ValueError(
+                f"reconstruction violated: share rows {subset} do not "
+                f"determine the secrets (rank < {k + t})"
+            )

@@ -25,16 +25,24 @@ keeps the reference's ``out_specs`` (replicated over ``p``, this rank's
 ``d``-slice of the batch axis), and ``mesh.gather_over`` assembles the
 whole. ``key`` is an integer seed or a generator; every rank draws from
 ``fold_mesh_axes(key, mesh)``.
+
+Telemetry (``sda_tpu_torch.telemetry``) records, as the reference does, the
+host dispatch time of each ``secure_sum`` stage and of each fabric call in
+the ``sda_engine_step_seconds`` histogram, and each fabric's nominal
+collective bytes in ``sda_engine_psum_bytes_total``; ``fabric_calls()`` and
+``fabric_bytes()`` read them back by fabric.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
 from ..device import resolve_device
 from ..ops import shamir
 from ..ops.chacha_cuda import expand_seeds_counts
@@ -42,6 +50,40 @@ from ..ops.modular import mod_sum_auto
 from ..protocol import AdditiveSharing, BasicShamirSharing, PackedShamirSharing
 from .limbmatmul import fold_const_limbs
 from .mesh import axis_size, gather_over, mesh_device, reduce_over
+
+
+STEP_SECONDS = "sda_engine_step_seconds"
+PSUM_BYTES = "sda_engine_psum_bytes_total"
+
+
+def _step_hist(step: str):
+    return telemetry.histogram(
+        STEP_SECONDS,
+        "secure_sum stage / sharded-fabric invocation timing (host dispatch)",
+        step=step,
+    )
+
+
+def _count_fabric(fabric: str, seconds: float, nbytes: int) -> None:
+    """One fabric call: its host time and its nominal collective bytes."""
+    _step_hist(fabric).observe(seconds)
+    telemetry.counter(
+        PSUM_BYTES, "nominal bytes moved per psum/all_to_all by sharded fabrics", fabric=fabric
+    ).inc(nbytes)
+
+
+def fabric_bytes() -> dict[str, int]:
+    """Nominal collective bytes of every fabric call so far, by fabric (the
+    ``sda_engine_psum_bytes_total`` series)."""
+    counters = telemetry.get_registry().snapshot()["counters"]
+    return {dict(labels)["fabric"]: v for (name, labels), v in counters.items() if name == PSUM_BYTES}
+
+
+def fabric_calls() -> dict[str, int]:
+    """Fabric calls so far, by fabric (the ``sda_engine_step_seconds``
+    observations of each fabric in ``fabric_bytes``)."""
+    hists = telemetry.get_registry().snapshot()["histograms"]
+    return {f: hists[(STEP_SECONDS, (("step", f),))]["count"] for f in fabric_bytes()}
 
 
 @dataclass(frozen=True)
@@ -248,13 +290,22 @@ class TorchAggregator:
         self.mesh = mesh
 
     def secure_sum(self, secrets, generator: torch.Generator, indices=None) -> torch.Tensor:
-        """(P, dim) -> (dim,) aggregate, all on the plan's device."""
-        secrets = torch.as_tensor(secrets, device=self.device)
-        shares = share_participants(secrets, generator, self.plan, self.use_limbs)
-        sums = clerk_combine_mod(shares, self.plan.modulus)
-        if indices is None:
-            indices = range(self.plan.share_count)
-        return reconstruct(sums, indices, self.scheme, self.dim)
+        """(P, dim) -> (dim,) aggregate, all on the plan's device. Each
+        stage's host dispatch time goes to ``sda_engine_step_seconds``."""
+        with telemetry.span("engine.secure_sum", dim=self.dim):
+            t0 = time.perf_counter()
+            secrets = torch.as_tensor(secrets, device=self.device)
+            shares = share_participants(secrets, generator, self.plan, self.use_limbs)
+            t1 = time.perf_counter()
+            _step_hist("share").observe(t1 - t0)
+            sums = clerk_combine_mod(shares, self.plan.modulus)
+            t2 = time.perf_counter()
+            _step_hist("combine").observe(t2 - t1)
+            if indices is None:
+                indices = range(self.plan.share_count)
+            out = reconstruct(sums, indices, self.scheme, self.dim)
+            _step_hist("reconstruct").observe(time.perf_counter() - t2)
+        return out
 
     # -- sharded paths -------------------------------------------------------
 
@@ -340,23 +391,18 @@ class TorchAggregator:
         )
 
 
-#: invocations of each sharded fabric, by fabric name; only the fabric
-#: functions add to it
-fabric_calls: dict[str, int] = {}
-#: nominal bytes each fabric's collectives moved: its result's bytes times
-#: the participant-axis size, by fabric name
-fabric_bytes: dict[str, int] = {}
-
-
 def instrument_fabric(fn, fabric: str, p_size: int):
-    """Wrap a fabric ``fn(secrets, key, draw=None)``: count its invocations
-    and nominal collective bytes (result bytes x ``p_size``) in
-    ``fabric_calls`` / ``fabric_bytes``."""
+    """Wrap a fabric ``fn(secrets, key, draw=None)``: with telemetry on,
+    observe its host time under ``step=fabric`` and add its nominal
+    collective bytes (result bytes x ``p_size``) to
+    ``sda_engine_psum_bytes_total{fabric=}``."""
 
     def instrumented(secrets, key, draw=None):
+        if not telemetry.enabled():
+            return fn(secrets, key, draw)
+        t0 = time.perf_counter()
         out = fn(secrets, key, draw)
-        fabric_calls[fabric] = fabric_calls.get(fabric, 0) + 1
-        fabric_bytes[fabric] = fabric_bytes.get(fabric, 0) + out.numel() * out.element_size() * p_size
+        _count_fabric(fabric, time.perf_counter() - t0, out.numel() * out.element_size() * p_size)
         return out
 
     return instrumented
@@ -398,8 +444,8 @@ def masked_sum(secrets: torch.Tensor, seed_words: torch.Tensor, modulus: int, me
     one launch for the whole block), summed mod m, and the partial sums
     summed over ``p``. Returns the ``(dim,)`` masked total mod m on every
     rank; raises if any rank's seed window held fewer than ``dim`` accepted
-    draws (about once in 1e9 rows). Counted in ``fabric_calls`` /
-    ``fabric_bytes`` as ``masked_sum``."""
+    draws (about once in 1e9 rows). Counted as the fabric ``masked_sum``."""
+    t0 = time.perf_counter()
     dim = secrets.shape[1]
     masks, counts = expand_seeds_counts(seed_words, dim, modulus)
     total = torch.remainder(torch.sum(torch.remainder(secrets + masks, modulus), dim=0), modulus)
@@ -407,9 +453,9 @@ def masked_sum(secrets: torch.Tensor, seed_words: torch.Tensor, modulus: int, me
     dry = reduce_over((counts.min() < dim).to(torch.int64).reshape(1), mesh, "p")
     if int(dry) != 0:
         raise RuntimeError("a seed window held fewer than dim accepted draws")
-    fabric_calls["masked_sum"] = fabric_calls.get("masked_sum", 0) + 1
-    fabric_bytes["masked_sum"] = (fabric_bytes.get("masked_sum", 0)
-                                  + (total.numel() + 1) * total.element_size() * axis_size(mesh, "p"))
+    if telemetry.enabled():
+        _count_fabric("masked_sum", time.perf_counter() - t0,
+                      (total.numel() + 1) * total.element_size() * axis_size(mesh, "p"))
     return total
 
 

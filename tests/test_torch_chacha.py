@@ -166,6 +166,15 @@ def test_combine_masks_matches_jax(chunk, dim, m):
     np.testing.assert_array_equal(got.numpy(), wide.astype(np.int64))
 
 
+@pytest.mark.parametrize("m", [1 << 62, (1 << 63) - 25])
+def test_combine_masks_refuses_moduli_from_2_62(m):
+    """From 2^62 a fold ``(total + part) % m`` of two int64 residues can
+    overflow: the reference's fold returns a wrong sum at m = 2^63 - 25, the
+    port refuses such a modulus."""
+    with pytest.raises(ValueError, match=r">= 2\^62"):
+        chacha_cuda.combine_masks_device(SEEDS, 5, m, device=CPU)
+
+
 def test_slack_exhausted_raises_and_combine_recovers(monkeypatch):
     dim, m = 64, 433
     monkeypatch.setattr(chacha_cuda, "_window_pairs", lambda d, q: d // 2)

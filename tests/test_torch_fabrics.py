@@ -168,8 +168,8 @@ def _rank_mesh42(rank, world, inputs):
     except ValueError as exc:
         guards["global"] = str(exc)
     out["guards"] = guards
-    out["fabric_calls"] = dict(teng.fabric_calls)
-    out["fabric_bytes"] = dict(teng.fabric_bytes)
+    out["fabric_calls"] = teng.fabric_calls()
+    out["fabric_bytes"] = teng.fabric_bytes()
     return out
 
 
