@@ -13,13 +13,13 @@ import torch
 import jax.numpy as jnp
 from jax import random
 
-import chip_smoke
 from sda_tpu.ops.jaxcfg import ensure_x64
 from sda_tpu.ops.modular import positive
 from sda_tpu.parallel import engine as jeng
 from sda_tpu.parallel import sumfirst as jsf
 from sda_tpu.parallel.limbmatmul import limb_recombine_host
 from sda_tpu.protocol import PackedShamirSharing as JPacked
+from sda_tpu_torch import bench
 from sda_tpu_torch.ops import find_packed_parameters
 from sda_tpu_torch.ops import rng as trng
 from sda_tpu_torch.parallel import engine as teng
@@ -232,17 +232,18 @@ def test_pair_chunk_matches_int64_chunk():
 
 @pytest.mark.parametrize("bits", [30, 60], ids=["quick31", "northstar61"])
 def test_stream_matches_reference_chunks(bits):
-    """chip_smoke.py's sum-first stream (bench.py's body + finalize) at a
-    small size on the CPU: its accumulator equals the reference's chunk
-    functions fed the same draws, replayed from a generator with the same
-    seed in the stream's order (secrets, then randomness), and its
-    finalize returns the plain sum mod p."""
+    """``sda_tpu_torch.bench``'s sum-first stream (bench.py's body +
+    finalize, which ``chip_smoke.py`` drives) at a small size on the CPU:
+    its accumulator equals the reference's chunk functions fed the same
+    draws, replayed from a generator with the same seed in the stream's
+    order (secrets, then randomness), and its finalize returns the plain
+    sum mod p."""
     ours, ref = _bench(bits)
     p = ours.prime_modulus
     nbits = p.bit_length() - 1
     dim, chunk, n_chunks = 23, 40, 3
     tplan, jplan = teng.make_plan(ours, dim, CPU), jeng.make_plan(ref, dim)
-    step, acc, plain = chip_smoke.sumfirst_stream(tplan, dim, chunk, torch.Generator().manual_seed(7))
+    step, acc, plain = bench.sumfirst_stream(tplan, dim, chunk, torch.Generator().manual_seed(7))
     for _ in range(n_chunks):
         acc, plain = step(acc, plain)
 
@@ -266,8 +267,8 @@ def test_stream_matches_reference_chunks(bits):
     np.testing.assert_array_equal(acc.numpy(), jacc)
     assert acc.shape[0] == (1 if bits < 32 else 2)
 
-    got = chip_smoke.sumfirst_finalize(acc, plain, tplan, ours, dim)
+    got = bench.sumfirst_finalize(acc, plain, tplan, ours, dim)
     assert got is not None
     np.testing.assert_array_equal(got, _plain_sum(np.concatenate(secrets), p))
     # a corrupted check sum is caught
-    assert chip_smoke.sumfirst_finalize(acc, plain + 1, tplan, ours, dim) is None
+    assert bench.sumfirst_finalize(acc, plain + 1, tplan, ours, dim) is None
