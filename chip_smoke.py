@@ -67,11 +67,21 @@ Phases, each reported on its own line:
    launches) and 61-bit routes, sum-first quick with ``--check probe`` and
    ``off``; as subprocesses the north star and the K1 route with the
    ``--roofline`` decomposition, and a run with an injected fault that must
-   exit 1. One ``bench`` line each (the bench's own metric line).
+   exit 1. One ``bench`` line each (the bench's own metric line);
+12. drivers: ``python -m sda_tpu_torch.baseline_ladder --configs 2,3,4``,
+   the baseline ladder's device rows at full size (additive 3-way at a
+   32-bit prime, 1,000 x 100,000; basic Shamir t=2, n=5 through K1, 10,000
+   x 10,000; packed Shamir with clerk 3 dropped through sum-first, 100,000
+   x 50,000), one ``ladder`` line per row, each whole and verified, config
+   3 with one K1 launch per 2,000-row chunk; K1 against its plain version
+   at config 3's launch shape (K = 3, L = 3, n = 5) through both entries,
+   and its ``numbers`` line there; then ``python -m
+   sda_tpu_torch.examples.secure_sum_fabric`` on the visible cards, which
+   must print its three OK lines.
 
 Then the ``{"kernels": [...]}`` line (launches: K1's on the main path, the
-fabrics, the FedAvg round and the bench's K1 route, K2's on the masked
-path, the fabrics and the FedAvg round), and last ``{"ok":
+fabrics, the FedAvg round, the bench's K1 route and the ladder's config 3,
+K2's on the masked path, the fabrics and the FedAvg round), and last ``{"ok":
 true, "device": ...}``. Any failed phase raises, and the script exits
 nonzero.
 """
@@ -891,14 +901,21 @@ BENCH_CLI_RUNS = {
 BENCH_FAULT_RUN = ["--quick", "--no-parity"]
 
 
+def _module_cli(module: str, argv, timeout: int, env=None):
+    """``python -m module *argv`` from the checkout's root: its exit code,
+    stdout and stderr."""
+    out = subprocess.run([sys.executable, "-m", module, *argv],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    return out.returncode, out.stdout, out.stderr
+
+
 def _bench_cli(argv, env=None, timeout: int = 600):
     """``python -m sda_tpu_torch.bench *argv`` from the checkout's root:
     its exit code, its last stdout line as JSON, and its stderr."""
-    out = subprocess.run([sys.executable, "-m", "sda_tpu_torch.bench", *argv],
-                         cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
-                         capture_output=True, text=True, timeout=timeout)
-    lines = out.stdout.strip().splitlines()
-    return out.returncode, json.loads(lines[-1]) if lines else None, out.stderr
+    rc, out, err = _module_cli("sda_tpu_torch.bench", argv, timeout, env)
+    lines = out.strip().splitlines()
+    return rc, json.loads(lines[-1]) if lines else None, err
 
 
 def bench_phase(card: str) -> int:
@@ -942,6 +959,127 @@ def bench_phase(card: str) -> int:
     if not caught:
         raise AssertionError(f"bench fault run: rc {rc}, line {line}; stderr tail:\n{err[-3000:]}")
     return k1
+
+
+# phase 12: the last device-plane drivers, each as a user runs it, from the
+# checkout's root: the baseline ladder's device rows (``LADDER_ARGV``; every
+# row at full size: 1,000 x 100,000, 10,000 x 10,000 and 100,000 x 50,000)
+# and the secure-sum fabric demo on the visible cards
+LADDER_ARGV = ["--configs", "2,3,4"]
+DEMO_OK_LINES = 3
+# config 3's scheme (scripts/baseline_ladder.py:391-460): basic Shamir t=2,
+# n=5 at a 21-bit prime, dim 10,000, chunks of 2,000: K1 at K = k + t = 3,
+# L = 3 limbs and 5 of a tile's 8 clerks
+LADDER_K1 = {"share_count": 5, "privacy_threshold": 2, "prime_modulus": 1048583}
+LADDER_K1_DIM, LADDER_K1_CHUNK = 10_000, 2_000
+
+
+def drivers_phase(card: str, dev, seed: int) -> tuple[int, int]:
+    """Phase 12: ``python -m sda_tpu_torch.baseline_ladder`` (one ``ladder``
+    line per row; every row must be whole, verified and error-free, and
+    config 3 must launch K1 once per 2,000-row chunk), K1 against its plain
+    version at config 3's launch shape through both entries and its
+    ``numbers`` line there, then ``python -m
+    sda_tpu_torch.examples.secure_sum_fabric`` (its three OK lines). Returns
+    config 3's K1 launches and the parity's largest difference."""
+    import math
+
+    import torch
+
+    from sda_tpu_torch.parallel import make_plan
+    from sda_tpu_torch.parallel.limb_cuda import (
+        participant_limb_sums_cuda,
+        participant_limb_sums_torch,
+        share_limb_sums_cuda,
+        share_limb_sums_torch,
+    )
+    from sda_tpu_torch.protocol import BasicShamirSharing
+
+    torch.cuda.empty_cache()  # the subprocesses share the card with this one
+    t0 = time.perf_counter()
+    rc, out, err = _module_cli("sda_tpu_torch.baseline_ladder", LADDER_ARGV, timeout=900)
+    ladder_s = time.perf_counter() - t0
+    try:
+        payload = json.loads(out)
+    except json.JSONDecodeError:
+        raise AssertionError(f"ladder: rc {rc}, no JSON payload; stderr tail:\n{err[-3000:]}") from None
+    rows = payload["configs"]
+    for row in rows:
+        _line("ladder", argv=LADDER_ARGV, **row)
+    k1 = None
+    for row in rows:
+        if not row.get("verified") or "error" in row or row.get("partial"):
+            raise AssertionError(f"ladder row not whole and verified: {row}")
+        if row["config"].startswith("3-device"):
+            k1 = row["launches"]["limb_share_sum"]
+            want = math.ceil(row["participants"] / LADDER_K1_CHUNK)
+            if k1 != want:
+                raise AssertionError(f"ladder config 3 launched limb_share_sum {k1} times, expected {want}")
+    if rc != 0 or len(rows) != 3 or k1 is None:
+        raise AssertionError(f"ladder: rc {rc}, {len(rows)} rows; stderr tail:\n{err[-3000:]}")
+    _line("ladder run", argv=LADDER_ARGV, rc=rc, wall_s=ladder_s, card=payload["card"],
+          power_limit=payload["power_limit"])
+
+    # K1 at config 3's launch shape, through both entries, and its numbers
+    scheme = BasicShamirSharing(**LADDER_K1)
+    plan = make_plan(scheme, LADDER_K1_DIM, dev)
+    p, k, t, stacks = plan.modulus, plan.input_size, plan.rand_size, plan.limb_stacks
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def canonical(shape):
+        return torch.randint(0, p, shape, generator=gen, dtype=torch.int32, device=dev)
+
+    C, nb = LADDER_K1_CHUNK, plan.n_batches
+    secrets, rand, values = canonical((C, LADDER_K1_DIM)), canonical((C, nb, t)), canonical((C, nb, k + t))
+    max_err = 0
+    for entry, got, want, shape in (
+        ("values", participant_limb_sums_cuda(values, stacks),
+         participant_limb_sums_torch(values, stacks), [list(values.shape)]),
+        ("secrets+randomness", share_limb_sums_cuda(secrets, rand, stacks, k),
+         share_limb_sums_torch(secrets, rand, stacks, k), [list(secrets.shape), list(rand.shape)]),
+    ):
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        max_err = max(max_err, int((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
+        _line("parity", kernel="limb_share_sum", entry=entry,
+              case=f"ladder config 3 (basic Shamir K={k + t}, L={stacks.shape[0]}, n={stacks.shape[2]})",
+              shape=shape, out=list(got.shape), identical=same)
+        if not same:
+            raise AssertionError(f"limb_share_sum differs from its plain version ({entry}, ladder config 3)")
+    del values
+
+    def k1_run():
+        return share_limb_sums_cuda(secrets, rand, stacks, k)
+
+    def k1_plain():
+        return share_limb_sums_torch(secrets, rand, stacks, k)
+
+    plain_a = _time_ms(k1_plain, iters=2)
+    kernel_a = _kernel_ms(k1_run, 20, "limb_share_sum")
+    kernel_b = _kernel_ms(k1_run, 20, "limb_share_sum")
+    plain_b = _time_ms(k1_plain, iters=2)
+    wrapper = _time_ms(k1_run, iters=20, warmup=3)
+    moved, ops, bytes_ms, ops_ms = _k1_bound(secrets, rand, stacks)
+    _line("numbers", kernel="limb_share_sum", path="ladder config 3",
+          shape=[list(secrets.shape), list(rand.shape)], kernel_ms=[kernel_a, kernel_b],
+          wrapper_ms=wrapper, plain_ms=[plain_a, plain_b], bytes=moved, int8_ops=ops,
+          bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
+          launches=k1, card=card)
+    del secrets, rand
+
+    # the fabric demo: one NCCL rank per visible card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc, out, err = _module_cli("sda_tpu_torch.examples.secure_sum_fabric", [], timeout=600)
+    demo_s = time.perf_counter() - t0
+    ok_lines = [text for text in out.splitlines() if " OK: " in text]
+    for text in out.splitlines():
+        _line("demo", line=text)
+    _line("demo run", rc=rc, wall_s=demo_s, card=card)
+    if rc != 0 or len(ok_lines) != DEMO_OK_LINES:
+        raise AssertionError(f"secure_sum_fabric demo: rc {rc}, {len(ok_lines)} OK lines; "
+                             f"stderr tail:\n{err[-3000:]}")
+    return k1, max_err
 
 
 def _query_gpu(field: str) -> str:
@@ -1307,14 +1445,16 @@ def main(argv=None) -> int:
         card, dev, args.seed, scheme, sm_clocks_per_ms)
     # -- 11. the bench entry, once per engine route ----------------------------
     bench_k1 = bench_phase(card)
+    # -- 12. the baseline ladder's device rows and the fabric demo ---------------
+    ladder_k1, ladder_k1_err = drivers_phase(card, dev, args.seed)
 
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",
         "route": "cuda",
         "source": "sda_tpu_torch/csrc/limb_share_sum.cu",
         "replaces": "sda_tpu/parallel/limb_pallas.py:31",
-        "launches": launches + fabric_launches["limb_share_sum"] + fedavg_k1 + bench_k1,
-        "max_abs_err": max(max_err, fedavg_k1_err),
+        "launches": launches + fabric_launches["limb_share_sum"] + fedavg_k1 + bench_k1 + ladder_k1,
+        "max_abs_err": max(max_err, fedavg_k1_err, ladder_k1_err),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),

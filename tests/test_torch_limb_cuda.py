@@ -274,6 +274,10 @@ def _scheme_case(args, C, dim):
 
     if args == "p433":
         scheme = PackedShamirSharing(3, 8, 4, 433, 354, 150)
+    elif args == "basic":  # the ladder's config 3: k=1, K=3, L=3, n=5
+        from sda_tpu_torch.protocol import BasicShamirSharing
+
+        scheme = BasicShamirSharing(share_count=5, privacy_threshold=2, prime_modulus=1048583)
     else:
         k, n, t = args
         p, w2, w3 = tfind(k, t, n, min_modulus_bits=30, seed=0)
@@ -305,9 +309,11 @@ def _synthetic_case(C, dim, k, t, n, L):
         lambda: _scheme_case((10, 26, 5), 9, 31),
         lambda: _scheme_case((5, 8, 2), 3, 703),
         lambda: _synthetic_case(3, 70, 30, 7, 11, 3),
+        lambda: _scheme_case("basic", 21, 37),
+        lambda: _scheme_case("basic", 100, 40),
     ],
     ids=["bench-dim23", "bench-dim100", "n26-4tiles", "p433-L2", "K15-n26",
-         "bench-9-row-blocks", "K37-kk-slices"],
+         "bench-9-row-blocks", "K37-kk-slices", "basic-K3-n5", "basic-K3-n5-100-rows"],
 )
 def test_kernel_model_reproduces_plain_version(case):
     secrets, rand, stacks, k = case()
