@@ -79,9 +79,22 @@ Phases, each reported on its own line:
    sda_tpu_torch.examples.secure_sum_fabric`` on the visible cards, which
    must print its three OK lines.
 
+13. model rounds: the model plane's remaining drivers over ``model_round``,
+   an engine round of wire vectors (mask: K2, share and sum: K1, reveal,
+   unmask: K2) at the CNN's width with 10 clients per round, two rounds
+   each: ``WeightedFederatedAveraging`` (the ``(w·x, w)`` wire, sample-count
+   weights) under ``FedAvgM``, and ``DPFederatedAveraging`` (L2 clip,
+   discrete Gaussian noise drawn on the card, the zCDP accountant) under
+   ``FedAdam``; one ``model round`` line each, checked against host numpy
+   (wires, field sum, mean, the server step bit for bit, the noise's
+   spread, the privacy account) and by launch counts; a ``privacy`` line
+   composing the DP rounds; K1 and K2 against their plain versions at the
+   rounds' shapes, and their ``numbers`` there.
+
 Then the ``{"kernels": [...]}`` line (launches: K1's on the main path, the
-fabrics, the FedAvg round, the bench's K1 route and the ladder's config 3,
-K2's on the masked path, the fabrics and the FedAvg round), and last ``{"ok":
+fabrics, the FedAvg round, the bench's K1 route, the ladder's config 3 and
+the model rounds, K2's on the masked path, the fabrics, the FedAvg round and
+the model rounds), and last ``{"ok":
 true, "device": ...}``. Any failed phase raises, and the script exits
 nonzero.
 """
@@ -229,17 +242,21 @@ def _kernel_ms(fn, iters: int, kernel: str) -> float:
     """Device time per launch of the kernel named ``kernel`` while ``fn``
     runs ``iters`` times: its own time by ``torch.profiler``, without the
     host work of the wrapper that launches it. A window counts only if the
-    profiler saw all ``iters`` launches in it; on the H100 it drops some of
-    a window's kernel records now and then (0, 2, 16 or 19 of 20 seen while
-    all 20 ran), so up to ``PROFILER_WINDOWS`` windows are tried, each
-    short one on a line."""
+    profiler saw all of its launches; on the H100 it drops some of a
+    window's kernel records now and then (0, 2, 16 or 19 of 20 seen while
+    all 20 ran, and once 14 of 20 in five windows in a row), so up to
+    ``PROFILER_WINDOWS`` windows are tried, each one after a short window
+    half as long as the one before (at least one launch), and each short
+    window is printed on a line."""
+    window = iters
     for _ in range(PROFILER_WINDOWS):
-        count, total_ms = _profiled(fn, iters, kernel)
-        if count == iters:
+        count, total_ms = _profiled(fn, window, kernel)
+        if count == window:
             return total_ms / count
-        _line("profiler window", kernel=kernel, saw=count, expected=iters)
-    raise AssertionError(f"the profiler saw {count} launches of {kernel}, expected {iters}, "
-                         f"in each of {PROFILER_WINDOWS} windows")
+        _line("profiler window", kernel=kernel, saw=count, expected=window)
+        last, window = window, max(1, window // 2)
+    raise AssertionError(f"the profiler saw {count} launches of {kernel}, expected {last}, "
+                         f"in the last of {PROFILER_WINDOWS} windows")
 
 
 def _k1_bound(secrets, rand, stacks):
@@ -582,6 +599,52 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _stage_timer(dev, seconds: dict):
+    """``stage(name, fn)``: run ``fn`` between two synchronisations of
+    ``dev`` and add its seconds to ``seconds[name]``."""
+    def stage(name, fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        seconds[name] += time.perf_counter() - t0
+        return out
+
+    return stage
+
+
+def _mask_chunk(seed_words, values, p: int):
+    """A chunk's canonical ``(C, d)`` values masked mod p with the expansion
+    of their ``(C, w)`` seeds (``expand_seeds_counts``: K2), as int32."""
+    import torch
+
+    from sda_tpu_torch.ops.chacha_cuda import expand_seeds_counts
+
+    masks, counts = expand_seeds_counts(seed_words, values.shape[1], p)
+    if int(counts.min()) < values.shape[1]:
+        raise AssertionError("a participant's seed window held fewer than dim draws")
+    return torch.remainder(values + masks, p).to(torch.int32)
+
+
+def _unmask_reveal(acc, plan, scheme, seeds):
+    """The recipient's side of a masked round: recombine the limb
+    accumulator, reconstruct from clerks 1..t+k (clerk 0 dropped) and
+    subtract the re-expanded masks of all ``seeds`` (``combine_masks_device``:
+    K2); the canonical ``(dim,)`` field sum."""
+    import torch
+
+    from sda_tpu_torch.ops.chacha_cuda import combine_masks_device
+    from sda_tpu_torch.ops.modular import positive
+    from sda_tpu_torch.parallel.engine import reconstruct
+    from sda_tpu_torch.parallel.limbmatmul import limb_recombine
+
+    p, dim = plan.modulus, plan.dim
+    survivors = list(range(1, 1 + scheme.reconstruction_threshold))
+    masked_total = reconstruct(limb_recombine(acc, p).T, survivors, scheme, dim)
+    masks = combine_masks_device(seeds, dim, p, device=acc.device)
+    return positive(torch.fmod(masked_total - masks, p), p)
+
+
 def fedavg_round(updates, spec, scheme, seeds, global_model, generator, chunk: int = FEDAVG_CHUNK):
     """One ChaCha-masked secure FedAvg round on ``generator``'s device,
     through the port's entry points. Each of the ``P`` update pytrees is
@@ -603,32 +666,21 @@ def fedavg_round(updates, spec, scheme, seeds, global_model, generator, chunk: i
     import torch
 
     from sda_tpu_torch.models import dequantize_mean, fedavg_apply, flatten_pytree, tree_layout
-    from sda_tpu_torch.ops.chacha_cuda import combine_masks_device, expand_seeds_counts, seed_tensor
-    from sda_tpu_torch.ops.modular import positive
+    from sda_tpu_torch.ops.chacha_cuda import seed_tensor
     from sda_tpu_torch.parallel import make_plan
-    from sda_tpu_torch.parallel.engine import reconstruct
     from sda_tpu_torch.parallel.limb_cuda import share_combine_limb_cuda
-    from sda_tpu_torch.parallel.limbmatmul import limb_recombine
 
     dev = generator.device
     p = spec.modulus
     treedef, shapes, dim = tree_layout(global_model)
     plan = make_plan(scheme, dim, dev)
     seed_words = seed_tensor(seeds, dev)
-    survivors = list(range(1, 1 + scheme.reconstruction_threshold))
     P = len(updates)
     residues = torch.empty((P, dim), dtype=torch.int64, device=dev)
     acc = torch.zeros((plan.limb_stacks.shape[0], plan.n_batches, plan.share_count),
                       dtype=torch.int64, device=dev)
     seconds = dict.fromkeys(("quantize_s", "masking_s", "sharing_s", "reveal_s", "dequantize_s"), 0.0)
-
-    def stage(name, fn):
-        _sync(dev)
-        t0 = time.perf_counter()
-        out = fn()
-        _sync(dev)
-        seconds[name] += time.perf_counter() - t0
-        return out
+    stage = _stage_timer(dev, seconds)
 
     def quantize(rows):
         flats = []
@@ -639,16 +691,6 @@ def fedavg_round(updates, spec, scheme, seeds, global_model, generator, chunk: i
             flats.append(flat)
         return spec.quantize(torch.stack(flats))
 
-    def mask(rows, q):
-        masks, counts = expand_seeds_counts(seed_words[rows], dim, p)
-        if int(counts.min()) < dim:
-            raise AssertionError("a participant's seed window held fewer than dim draws")
-        return torch.remainder(q + masks, p).to(torch.int32)
-
-    def reveal():
-        masked_total = reconstruct(limb_recombine(acc, p).T, survivors, scheme, dim)
-        masks = combine_masks_device(seeds, dim, p, device=dev)
-        return positive(torch.fmod(masked_total - masks, p), p)
 
     def finish(field_sum):
         mean = dequantize_mean(field_sum, P, spec, treedef, shapes)
@@ -660,9 +702,9 @@ def fedavg_round(updates, spec, scheme, seeds, global_model, generator, chunk: i
         rows = slice(start, min(start + chunk, P))
         q = stage("quantize_s", lambda: quantize(rows))
         residues[rows] = q
-        masked = stage("masking_s", lambda: mask(rows, q))
+        masked = stage("masking_s", lambda: _mask_chunk(seed_words[rows], q, p))
         acc = stage("sharing_s", lambda: torch.fmod(acc + share_combine_limb_cuda(masked, generator, plan), p))
-    field_sum = stage("reveal_s", reveal)
+    field_sum = stage("reveal_s", lambda: _unmask_reveal(acc, plan, scheme, seeds))
     mean, new_global = stage("dequantize_s", lambda: finish(field_sum))
     seconds["wall_s"] = time.perf_counter() - t0
     return {"new_global": new_global, "mean": mean, "field_sum": field_sum, "residues": residues,
@@ -877,6 +919,340 @@ def fedavg_phase(card: str, dev, seed: int, main_scheme, sm_clocks_per_ms: float
     if not ok:
         raise AssertionError("telemetry: secure_sum's steps or span differ from one call's")
     return launches["limb_share_sum"], launches["chacha20"], k1_err, k2_err
+
+
+# phase 13: the model plane's remaining drivers, each over engine rounds at
+# the width of the FEDAVG_MODEL CNN: weighted FedAvg (the ``(w·x, w)`` wire)
+# with server momentum (FedAvgM), and distributed-DP FedAvg (discrete
+# Gaussian noise drawn on the card, the zCDP accountant) with server Adam
+# (FedAdam), MODEL_ROUNDS rounds each. The cohort per round is the paper's
+# C = 0.1 of K = 100 clients (McMahan et al., AISTATS 2017, section 3)
+MODEL_COHORT, MODEL_ROUNDS = 10, 2
+# update coordinates: UPDATE_SCALE x N(0, 1), clamped to the weighted clip
+UPDATE_SCALE = 0.05
+# weighted: a client's weight is its sample count, at most the 600 examples
+# an MNIST client holds in the paper (60,000 over K = 100); coordinates
+# bounded by 1.0; 15 fractional bits keep the field under 2^31 for K1
+WEIGHTED_FRAC_BITS, WEIGHTED_CLIP, WEIGHTED_MAX_WEIGHT = 15, 1.0, 600
+# DP-FedAvg (McMahan et al., ICLR 2018): updates clipped to L2 norm 1.0,
+# noise multiplier 1.0, delta 1e-6 (the reference's default)
+DP_FRAC_BITS, DP_L2_CLIP, DP_NOISE_MULTIPLIER, DP_DELTA = 16, 1.0, 1.0, 1e-6
+
+
+def model_round(fed, updates, global_model, optimizer, scheme, seeds, generator, weights=None,
+                chunk: int = FEDAVG_CHUNK):
+    """One engine round of a model-plane driver on ``generator``'s device,
+    through the port's entry points: each participant's wire vector
+    (``fed.wire``: the quantized update, ``(w·x, w)`` with ``weights``, plus
+    the party's noise for a DP driver), per chunk of ``chunk`` masked mod p
+    with the expansion of its ``(P, w)`` uint32 ``seeds`` (K2) and shared
+    and summed over participants (K1); the recipient reveals the field sum
+    from clerks 1..t+k (K2 unmasks), ``fed.finish_round`` makes the mean
+    (and the total weight) of it, and ``optimizer`` applies the mean to
+    ``global_model``. On CPU tensors the kernels' plain versions run.
+
+    Returns a dict: ``wires`` (the ``(P, w)`` int64 vectors), ``field_sum``,
+    ``mean``, ``total_weight`` (None without ``weights``), ``new_global``
+    and the synchronised seconds of each stage and of the whole.
+    """
+    import torch
+
+    from sda_tpu_torch.ops.chacha_cuda import seed_tensor
+    from sda_tpu_torch.parallel import make_plan
+    from sda_tpu_torch.parallel.limb_cuda import share_combine_limb_cuda
+
+    dev = generator.device
+    p, width = fed.spec.modulus, fed.wire_dimension
+    plan = make_plan(scheme, width, dev)
+    seed_words = seed_tensor(seeds, dev)
+    P = len(updates)
+    wires = torch.empty((P, width), dtype=torch.int64, device=dev)
+    acc = torch.zeros((plan.limb_stacks.shape[0], plan.n_batches, plan.share_count),
+                      dtype=torch.int64, device=dev)
+    seconds = dict.fromkeys(("wire_s", "masking_s", "sharing_s", "reveal_s", "finish_s", "apply_s"), 0.0)
+    stage = _stage_timer(dev, seconds)
+
+    def wire(rows):
+        if weights is None:
+            return torch.stack([fed.wire(u) for u in updates[rows]])
+        return torch.stack([fed.wire(u, w) for u, w in zip(updates[rows], weights[rows])])
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    for start in range(0, P, chunk):
+        rows = slice(start, min(start + chunk, P))
+        wires[rows] = stage("wire_s", lambda: wire(rows))
+        masked = stage("masking_s", lambda: _mask_chunk(seed_words[rows], wires[rows], p))
+        acc = stage("sharing_s", lambda: torch.fmod(acc + share_combine_limb_cuda(masked, generator, plan), p))
+    field_sum = stage("reveal_s", lambda: _unmask_reveal(acc, plan, scheme, seeds))
+    out = stage("finish_s", lambda: fed.finish_round(field_sum, P))
+    mean, total_weight = out if weights is not None else (out, None)
+    new_global = stage("apply_s", lambda: optimizer(global_model, mean))
+    seconds["wall_s"] = time.perf_counter() - t0
+    return {"wires": wires, "field_sum": field_sum, "mean": mean, "total_weight": total_weight,
+            "new_global": new_global, "seconds": seconds}
+
+
+class _HostFedAvgM:
+    """The check's own statement of server momentum in numpy float64
+    (Reddi et al. 2021; the reference's ``FedAvgM``)."""
+
+    def __init__(self, momentum: float = 0.9, lr: float = 1.0):
+        self.momentum, self.lr, self.v = momentum, lr, None
+
+    def __call__(self, w, u):
+        import numpy as np
+
+        self.v = np.zeros_like(w) if self.v is None else self.v
+        self.v = self.momentum * self.v + u
+        return w + self.lr * self.v
+
+
+class _HostFedAdam:
+    """The check's own statement of server Adam in numpy float64 (Reddi et
+    al. 2021, Alg. 2; the reference's ``FedAdam``)."""
+
+    def __init__(self, lr: float = 0.1, beta1: float = 0.9, beta2: float = 0.99, tau: float = 1e-3):
+        self.lr, self.beta1, self.beta2, self.tau = lr, beta1, beta2, tau
+        self.m = self.v = None
+        self.t = 0
+
+    def __call__(self, w, g):
+        import numpy as np
+
+        if self.m is None:
+            self.m, self.v = np.zeros_like(w), np.zeros_like(w)
+        self.t += 1
+        self.m = self.beta1 * self.m + (1 - self.beta1) * g
+        self.v = self.beta2 * self.v + (1 - self.beta2) * g * g
+        m_hat = self.m / (1 - self.beta1 ** self.t)
+        v_hat = self.v / (1 - self.beta2 ** self.t)
+        return w + self.lr * m_hat / (np.sqrt(v_hat) + self.tau)
+
+
+def _centered(v, p: int):
+    import numpy as np
+
+    return np.where(v > p // 2, v - p, v)
+
+
+def model_rounds_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+    """Phase 13: MODEL_ROUNDS ``model_round``s of ``MODEL_COHORT`` clients of
+    the ``FEDAVG_MODEL`` CNN for each of two drivers, the kernels' launches
+    counted per round: ``WeightedFederatedAveraging`` with sample-count
+    weights under ``FedAvgM``, and ``DPFederatedAveraging`` under
+    ``FedAdam``. Each round is held to (a) its wire vectors against host
+    numpy's quantization of the same updates (for DP: the noise they carry,
+    against the discrete Gaussian's spread), (b) the revealed field sum
+    against an int64 sum of the wires mod p, (c) the mean against host
+    numpy (weighted: within the quantization bound of the exact weighted
+    mean, the total weight exact; DP: bit-equal to numpy's dequantization
+    of the field sum, and the privacy account against its formula), (d)
+    the server step against the check's own numpy statement of the
+    optimizer, bit-equal, (e) the launch counts. Then the composed privacy
+    of the DP rounds, K1 and K2 against their plain versions at every shape
+    the rounds launched them at, and their times there. Returns ``(k1
+    launches, k2 launches, k1 max_abs_err, k2 max_abs_err)``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.models import (
+        DPConfig,
+        DPFederatedAveraging,
+        FedAdam,
+        FedAvgM,
+        WeightedFederatedAveraging,
+        compose_accounts,
+    )
+    from sda_tpu_torch.models.dp import NOISE_TAIL_SIGMAS
+    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.ops.chacha import chacha_blocks_torch
+    from sda_tpu_torch.ops.chacha_cuda import chacha_blocks_cuda, default_chunk, seed_tensor, window_blocks
+    from sda_tpu_torch.parallel import limb_cuda, make_plan
+    from sda_tpu_torch.parallel.limb_cuda import share_limb_sums_cuda, share_limb_sums_torch
+
+    P = MODEL_COHORT
+    dim = sum(math.prod(s) for leaves in FEDAVG_MODEL.values() for s in leaves.values())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    global0 = {layer: {name: 0.05 * torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+                       for name, shape in leaves.items()} for layer, leaves in FEDAVG_MODEL.items()}
+    weighted, weighted_scheme = WeightedFederatedAveraging.fitted(
+        WEIGHTED_FRAC_BITS, WEIGHTED_CLIP, WEIGHTED_MAX_WEIGHT, P, global0, device=dev)
+    dp = DPConfig(l2_clip=DP_L2_CLIP, noise_multiplier=DP_NOISE_MULTIPLIER, expected_participants=P,
+                  delta=DP_DELTA)
+    dp_spec, dp_scheme = DPFederatedAveraging.fitted_spec(DP_FRAC_BITS, dp, dim)
+    dp_fed = DPFederatedAveraging(dp_spec, global0, dp, torch.Generator(device=dev).manual_seed(seed + 1),
+                                  device=dev)
+    drivers = [("weighted", weighted, weighted_scheme, FedAvgM(device=dev), _HostFedAvgM()),
+               ("dp", dp_fed, dp_scheme, FedAdam(device=dev), _HostFedAdam())]
+    k1_total = k2_total = 0
+    accounts = []
+    for label, fed, scheme, optimizer, host_optimizer in drivers:
+        spec = fed.spec
+        p, scale = spec.modulus, spec.scale
+        global_model = global0
+        host_global = _sorted_flat(global0)
+        for round_index in range(MODEL_ROUNDS):
+            flat_updates = torch.clamp(
+                UPDATE_SCALE * torch.randn((P, dim), generator=gen, dtype=torch.float64, device=dev),
+                -WEIGHTED_CLIP, WEIGHTED_CLIP)
+            updates = [_tree_views(row, FEDAVG_MODEL) for row in flat_updates]
+            weights = ([int(w) for w in rng.integers(1, WEIGHTED_MAX_WEIGHT + 1, size=P)]
+                       if label == "weighted" else None)
+            seeds = rng.integers(0, 1 << 32, size=(P, SEED_WORDS), dtype=np.uint64).astype(np.uint32)
+            torch.cuda.synchronize()
+            limb_cuda.launches = chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
+            out = model_round(fed, updates, global_model, optimizer, scheme, seeds, gen, weights)
+            launches = {"limb_share_sum": limb_cuda.launches, "chacha20": chacha_cuda.launches}
+            recoveries = chacha_cuda.slack_recoveries
+
+            host = flat_updates.cpu().numpy()
+            wires = out["wires"].cpu().numpy()
+            field_sum = out["field_sum"].cpu().numpy()
+            # (b) the revealed field sum against an int64 sum of the wires
+            sum_ok = bool(np.array_equal(field_sum, wires.sum(axis=0) % p))
+            extra = {}
+            if weights is not None:
+                # (a) the (w·x, w) wires against host numpy's quantization
+                w = np.asarray(weights, dtype=np.float64)
+                channel = np.concatenate([host * w[:, None], w[:, None]], axis=1)
+                want_wires = np.rint(np.clip(channel, -spec.clip, spec.clip) * scale).astype(np.int64) % p
+                wire_ok = bool(np.array_equal(wires, want_wires))
+                # (c) the weighted mean within the quantization bound: each
+                # w·x rounds by at most 2^-(f+1), so the sum by P times that,
+                # over the exact total weight; 2^-40 of float64 slack
+                total = float(w.sum())
+                exact_mean = (w[:, None] * host).sum(axis=0) / total
+                max_mean_err = float(np.abs(_sorted_flat(out["mean"]) - exact_mean).max())
+                bound = P * 2.0 ** -(spec.frac_bits + 1) / total + 2.0 ** -40
+                mean_ok = max_mean_err <= bound and out["total_weight"] == total
+                extra = {"total_weight": out["total_weight"], "max_mean_err": max_mean_err, "bound": bound}
+            else:
+                # (a) the noise each wire carries: the wire less host numpy's
+                # clipped quantization of the same update, centred, pooled
+                # over the cohort; its spread against the party's sigma
+                norms = np.linalg.norm(host, axis=1)
+                clipped = host * np.where(norms > DP_L2_CLIP, DP_L2_CLIP / norms, 1.0)[:, None]
+                clean = np.rint(np.clip(clipped, -spec.clip, spec.clip) * scale).astype(np.int64) % p
+                noise = _centered((wires - clean) % p, p)
+                sigma = dp.sigma_party_field(scale, dim)
+                std_ratio = float(noise.std() / sigma)
+                mean_z = float(noise.mean() / (sigma / math.sqrt(noise.size)))
+                tail = float(np.abs(noise).max() / sigma)
+                wire_ok = abs(std_ratio - 1.0) < 0.01 and abs(mean_z) < 6.0 and tail <= NOISE_TAIL_SIGMAS
+                # (c) the mean bit-equal to numpy's dequantization, and the
+                # realized account against the formula
+                want_mean = _centered(field_sum, p).astype(np.float64) / scale / P
+                account = fed.privacy()
+                sens = DP_L2_CLIP * scale + 0.5 * math.sqrt(dim)
+                sigma_total = DP_NOISE_MULTIPLIER * sens
+                rho = sens * sens / (2.0 * sigma_total * sigma_total)
+                classic = rho + 2.0 * math.sqrt(rho * math.log(1.0 / DP_DELTA))
+                mean_ok = (bool(np.array_equal(_sorted_flat(out["mean"]), want_mean))
+                           and account.n_parties == P and math.isclose(account.rho, rho, rel_tol=1e-12)
+                           and rho < account.epsilon <= classic)
+                accounts.append(account)
+                extra = {"sigma_party": sigma, "noise_std_ratio": std_ratio, "noise_mean_z": mean_z,
+                         "noise_max_sigmas": tail, "epsilon": account.epsilon, "rho": account.rho,
+                         "delta": account.delta}
+            # (d) the server step against numpy
+            host_global = host_optimizer(host_global, _sorted_flat(out["mean"]))
+            apply_ok = bool(np.array_equal(_sorted_flat(out["new_global"]), host_global))
+            # (e) one K1 and one K2 per chunk, one K2 per reveal fold
+            chunks = -(-P // FEDAVG_CHUNK)
+            want = {"limb_share_sum": chunks,
+                    "chacha20": chunks + -(-P // default_chunk(fed.wire_dimension)) + recoveries}
+            exact = wire_ok and sum_ok and mean_ok and apply_ok
+            _line("model round", driver=label, round=round_index, participants=P, wire_dim=fed.wire_dimension,
+                  modulus=p, omega_secrets=scheme.omega_secrets, omega_shares=scheme.omega_shares,
+                  frac_bits=spec.frac_bits, optimizer=type(optimizer).__name__, **out["seconds"],
+                  launches=launches, slack_recoveries=recoveries, **extra, exact=exact,
+                  checks={"wire": wire_ok, "field_sum": sum_ok, "mean": mean_ok, "server_step": apply_ok},
+                  card=card)
+            if not exact:
+                raise AssertionError(f"model round ({label}, round {round_index}): a check failed")
+            if launches != want:
+                raise AssertionError(f"model round ({label}) launched {launches}, expected {want}")
+            k1_total += launches["limb_share_sum"]
+            k2_total += launches["chacha20"]
+            global_model = out["new_global"]
+            del out, updates, flat_updates, host, wires
+    composed = compose_accounts(accounts)
+    _line("privacy", driver="dp", rounds=composed.rounds, epsilon=composed.epsilon, rho=composed.rho,
+          delta=composed.delta, per_round_epsilon=[a.epsilon for a in accounts])
+    if not (composed.rounds == MODEL_ROUNDS and composed.epsilon > max(a.epsilon for a in accounts)):
+        raise AssertionError("composed privacy does not grow over the rounds")
+
+    # K1 and K2 against their plain versions at each driver's launch shapes
+    k1_err = k2_err = 0
+    timing = None
+    for label, fed, scheme, _, _ in drivers:
+        width, p = fed.wire_dimension, fed.spec.modulus
+        plan = make_plan(scheme, width, dev)
+        stacks = plan.limb_stacks
+        secrets = torch.randint(0, p, (P, width), generator=gen, dtype=torch.int32, device=dev)
+        rand = torch.randint(0, p, (P, plan.n_batches, plan.rand_size), generator=gen, dtype=torch.int32,
+                             device=dev)
+        got = share_limb_sums_cuda(secrets, rand, stacks, plan.input_size)
+        want_k1 = share_limb_sums_torch(secrets, rand, stacks, plan.input_size)
+        k1_err = max(k1_err, int((got.to(torch.int64) - want_k1.to(torch.int64)).abs().max()))
+        same = bool(torch.equal(got, want_k1))
+        _line("parity", kernel="limb_share_sum", entry="secrets+randomness",
+              case=f"{label} round chunk (d % 4 = {width % 4}, L = {stacks.shape[0]})",
+              shape=[list(secrets.shape), list(rand.shape)], out=list(got.shape), identical=same)
+        del got, want_k1
+        if not same:
+            raise AssertionError(f"limb_share_sum differs from its plain version ({label} round)")
+        n_blocks = window_blocks(width, p)
+        keys = seed_tensor(rng.integers(0, 1 << 32, size=(P, SEED_WORDS), dtype=np.uint64).astype(np.uint32),
+                           dev)
+        got = chacha_blocks_cuda(keys, 0, n_blocks)
+        want_k2 = chacha_blocks_torch(keys, 0, n_blocks)
+        k2_err = max(k2_err, int((got.to(torch.int64) - want_k2.to(torch.int64)).abs().max()))
+        same = bool(torch.equal(got, want_k2))
+        _line("parity", kernel="chacha20", case=f"{label} round masking and reveal fold {P} seeds x "
+              f"{n_blocks} blocks", shape=list(got.shape), identical=same)
+        del got, want_k2
+        if not same:
+            raise AssertionError(f"chacha20 differs from its plain version ({label} round)")
+        if label == "weighted":
+            timing = (secrets, rand, stacks, plan.input_size, keys, n_blocks)
+        else:
+            del secrets, rand
+
+    # each kernel's own time at the weighted round's shapes, its plain
+    # version's, its bound
+    secrets, rand, stacks, k, keys, n_blocks = timing
+
+    def k1():
+        return share_limb_sums_cuda(secrets, rand, stacks, k)
+
+    k1_plain = _time_ms(lambda: share_limb_sums_torch(secrets, rand, stacks, k), iters=2)
+    k1_ms = [_kernel_ms(k1, 10, "limb_share_sum") for _ in range(2)]
+    k1_wrapper = _time_ms(k1, iters=10, warmup=2)
+    moved, ops, bytes_ms, ops_ms = _k1_bound(secrets, rand, stacks)
+    _line("numbers", kernel="limb_share_sum", path="model rounds", shape=[list(secrets.shape), list(rand.shape)],
+          kernel_ms=k1_ms, wrapper_ms=k1_wrapper, plain_ms=k1_plain, bytes=moved, int8_ops=ops,
+          bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
+          launches=k1_total, card=card)
+
+    def k2():
+        return chacha_blocks_cuda(keys, 0, n_blocks)
+
+    k2_plain = _time_ms(lambda: chacha_blocks_torch(keys, 0, n_blocks), iters=2)
+    k2_wrapper = [_time_ms(k2, iters=10, warmup=2) for _ in range(2)]
+    seen, seen_ms = _profiled(k2, 10, "chacha20")
+    moved, ops, int_ops, bytes_ms, ops_ms = _k2_bound(P, n_blocks, sm_clocks_per_ms)
+    _line("numbers", kernel="chacha20", path="model rounds", shape=[P, n_blocks, 16],
+          wrapper_ms=k2_wrapper, profiler={"launches_seen": seen, "of": 10,
+                                           "ms_per_seen": seen_ms / seen if seen else None},
+          plain_ms=k2_plain, bytes=moved, int32_ops=ops, int_pipe_ops=int_ops,
+          bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
+          launches=k2_total, card=card)
+    return k1_total, k2_total, k1_err, k2_err
 
 
 # phase 11: ``python -m sda_tpu_torch.bench`` runs, by label. In this process
@@ -1447,14 +1823,18 @@ def main(argv=None) -> int:
     bench_k1 = bench_phase(card)
     # -- 12. the baseline ladder's device rows and the fabric demo ---------------
     ladder_k1, ladder_k1_err = drivers_phase(card, dev, args.seed)
+    # -- 13. weighted and DP FedAvg rounds with server optimizers ----------------
+    model_k1, model_k2, model_k1_err, model_k2_err = model_rounds_phase(
+        card, dev, args.seed, sm_clocks_per_ms)
 
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",
         "route": "cuda",
         "source": "sda_tpu_torch/csrc/limb_share_sum.cu",
         "replaces": "sda_tpu/parallel/limb_pallas.py:31",
-        "launches": launches + fabric_launches["limb_share_sum"] + fedavg_k1 + bench_k1 + ladder_k1,
-        "max_abs_err": max(max_err, fedavg_k1_err, ladder_k1_err),
+        "launches": (launches + fabric_launches["limb_share_sum"] + fedavg_k1 + bench_k1 + ladder_k1
+                     + model_k1),
+        "max_abs_err": max(max_err, fedavg_k1_err, ladder_k1_err, model_k1_err),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
@@ -1466,8 +1846,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "sda_tpu_torch/csrc/chacha20.cu",
         "replaces": "sda_tpu/ops/chacha_pallas.py:47",
-        "launches": masked_launches["chacha20"] + fabric_launches["chacha20"] + fedavg_k2,
-        "max_abs_err": max(k2_err, fabric_k2_err, fedavg_k2_err),
+        "launches": masked_launches["chacha20"] + fabric_launches["chacha20"] + fedavg_k2 + model_k2,
+        "max_abs_err": max(k2_err, fabric_k2_err, fedavg_k2_err, model_k2_err),
         "ms": kernel2_ms,
         "plain_ms": plain2_ms,
         "bound_ms": max(bytes2_ms, ops2_ms),

@@ -16,9 +16,17 @@ Counterpart of the pure half of ``sda_tpu/models/federated.py``:
    negatives as high residues, and refuses a field that cannot hold the sum
    of ``n_participants`` clipped values without wrapping.
 
+3. **Round drivers, their pure half**: ``FederatedAveraging`` and
+   ``WeightedFederatedAveraging`` hold a template's layout and give what a
+   participant submits (``wire``: the quantized update, or the weighted
+   ``(w·x, w)`` vector) and what the recipient makes of the revealed field
+   sum (``finish_round``: the mean pytree, or the weighted mean and the
+   total weight). Opening, sealing, clerking and revealing the round are
+   the protocol plane's client roles, which the port does not hold; a
+   caller carries the wire vectors through an engine round instead.
+
 The float64 operations run in the reference's order, so results are
-bit-equal to it. The round drivers (``FederatedAveraging``, checkpoints)
-call the protocol plane's client roles and stay in ``sda_tpu``.
+bit-equal to it.
 """
 
 from __future__ import annotations
@@ -247,3 +255,136 @@ def dequantize_mean(field_sum, n: int, spec: QuantizationSpec, treedef, shapes, 
     total = spec.dequantize_sum(field_sum, device)
     count = torch.tensor(float(n), dtype=torch.float64, device=total.device)
     return unflatten_pytree(total / count, treedef, shapes)
+
+
+class FederatedAveraging:
+    """The pure half of the reference's FedAvg round driver over a
+    template's layout. ``spec.n_participants`` is the field's capacity
+    (wraparound safety); fewer may submit, and the mean divides by the real
+    count. Wire vectors and means live on ``device`` (CUDA unless the
+    caller asks for the CPU)."""
+
+    def __init__(self, spec: QuantizationSpec, template_tree, device=None):
+        # layout only: no flat copy of a possibly large template model
+        treedef, shapes, dim = tree_layout(template_tree)
+        self.spec = spec
+        self.treedef = treedef
+        self.shapes = shapes
+        self.dim = dim
+        self.device = resolve_device(device)
+
+    @property
+    def wire_dimension(self) -> int:
+        """Length of the aggregated vector; subclasses that append channels
+        (a weight coordinate) override this."""
+        return self.dim
+
+    def _validated_flat(self, update_tree) -> torch.Tensor:
+        """Flatten an update and verify it has the template's layout."""
+        flat, treedef, shapes = flatten_pytree(update_tree, self.device)
+        if treedef != self.treedef:
+            raise ValueError("update pytree structure differs from template")
+        if shapes != self.shapes:
+            # the same treedef and size can still misalign coordinates
+            # (a transposed weight matrix): reject, don't corrupt
+            raise ValueError(
+                f"update leaf shapes {shapes} differ from template {self.shapes}"
+            )
+        return flat
+
+    def wire(self, update_tree) -> torch.Tensor:
+        """Participant: the ``(wire_dimension,)`` int64 field vector that
+        ``submit_update`` hands to participation."""
+        return self.spec.quantize(self._validated_flat(update_tree))
+
+    def reveal_field_sum(self, field_sum, n_submitted: int) -> torch.Tensor:
+        """Recipient: the revealed ``(wire_dimension,)`` field sum as a
+        canonical int64 tensor, refused, as the reference refuses it, when
+        nothing was submitted or when more updates were summed than the
+        field holds without wrapping (the sum would be unrecoverable)."""
+        if n_submitted <= 0:
+            raise ValueError("no updates were submitted; nothing to reveal")
+        if n_submitted > self.spec.n_participants:
+            raise ValueError(
+                f"{n_submitted} updates summed but the field only "
+                f"holds {self.spec.n_participants} without wraparound; re-run "
+                f"the round with a spec fitted for the larger cohort"
+            )
+        return positive(_as_tensor(field_sum, torch.int64, self.device), self.spec.modulus)
+
+    def finish_round(self, field_sum, n_submitted: int):
+        """Recipient: the mean-update pytree of ``n_submitted`` updates."""
+        field_sum = self.reveal_field_sum(field_sum, n_submitted)
+        return dequantize_mean(field_sum, n_submitted, self.spec, self.treedef, self.shapes)
+
+
+class WeightedFederatedAveraging(FederatedAveraging):
+    """FedAvg weighted by each participant's sample count, as one round:
+    each participant submits ``(w·update, w)`` as one field vector, and the
+    revealed sums give ``Σw·x / Σw`` without revealing any weight or update.
+
+    ``clip`` bounds each |update coordinate| and ``max_weight`` the weight,
+    so the product channel needs ``clip·max_weight`` of per-coordinate
+    headroom; ``fitted`` sizes the field for exactly that.
+    """
+
+    def __init__(self, spec: QuantizationSpec, template_tree, clip: float,
+                 max_weight: float, device=None):
+        super().__init__(spec, template_tree, device)
+        if clip <= 0 or max_weight <= 0:
+            raise ValueError("clip and max_weight must be positive")
+        if clip * max_weight > spec.clip or max_weight > spec.clip:
+            raise ValueError(
+                f"field bound {spec.clip} below the w*x channel "
+                f"({clip}*{max_weight}); build with .fitted"
+            )
+        self.clip = float(clip)
+        self.max_weight = float(max_weight)
+
+    @classmethod
+    def fitted(cls, frac_bits: int, clip: float, max_weight: float,
+               n_participants: int, template_tree, *, device=None, **shamir_kw):
+        """(driver, sharing) with the field sized for the w·x channel."""
+        bound = max(clip * max_weight, max_weight)
+        spec, sharing = QuantizationSpec.fitted(
+            frac_bits, bound, n_participants, **shamir_kw
+        )
+        return cls(spec, template_tree, clip, max_weight, device), sharing
+
+    @property
+    def wire_dimension(self) -> int:
+        return self.dim + 1  # update coordinates + the weight
+
+    def wire(self, update_tree, weight: float) -> torch.Tensor:
+        """Participant: the quantized ``(w·x, w)`` vector of an update and
+        its weight, both checked against their bounds."""
+        if not 0 < weight <= self.max_weight:
+            raise ValueError(
+                f"weight {weight} outside (0, {self.max_weight}]"
+            )
+        flat = self._validated_flat(update_tree)
+        if flat.numel() and float(flat.abs().max()) > self.clip:
+            raise ValueError(
+                f"update coordinates exceed the clip bound {self.clip}"
+            )
+        w = torch.tensor([float(weight)], dtype=torch.float64, device=flat.device)
+        return self.spec.quantize(torch.cat([flat * weight, w]))
+
+    def finish_round(self, field_sum, n_submitted: int):
+        """-> (weighted-mean pytree, total weight)."""
+        sums = self.spec.dequantize_sum(self.reveal_field_sum(field_sum, n_submitted))
+        total_weight = float(sums[-1])
+        mean = unflatten_pytree(
+            self._weighted_flat(sums, total_weight), self.treedef, self.shapes
+        )
+        return mean, total_weight
+
+    def _weighted_flat(self, sums: torch.Tensor, total_weight: float) -> torch.Tensor:
+        """The flat mean from the revealed sums. Noise-free weights sum
+        positive submissions, so a non-positive total means something is
+        deeply wrong; the DP subclass overrides this (a noisy total can dip
+        to 0 or below). The division is by a tensor on the sums' device
+        (``dequantize_mean`` says why)."""
+        if total_weight <= 0:
+            raise ValueError("revealed total weight is not positive")
+        return sums[: self.dim] / torch.tensor(total_weight, dtype=torch.float64, device=sums.device)

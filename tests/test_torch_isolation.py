@@ -40,6 +40,14 @@ def test_no_jax_or_reference_imports(path):
         assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {name}"
 
 
+def test_model_plane_drivers_are_scanned():
+    """The FedAvg drivers, server optimizers and DP module hold the port's
+    own copies of reference code: the scan above covers each of them."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("federated", "optimizers", "dp", "trainer"):
+        assert f"sda_tpu_torch/models/{name}.py" in scanned
+
+
 def _no_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: this checks the behaviour without one")
