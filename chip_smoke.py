@@ -90,11 +90,27 @@ Phases, each reported on its own line:
    spread, the privacy account) and by launch counts; a ``privacy`` line
    composing the DP rounds; K1 and K2 against their plain versions at the
    rounds' shapes, and their ``numbers`` there.
+14. sealed round: the protocol plane's aggregation round
+   (``sealed_round``) through ``new_mem_server`` and ``SdaClient``s, each
+   member with its own keystore in a temporary directory: 10 participants
+   (the paper's per-round cohort) each quantize a float update of the CNN
+   and mask (ChaCha), share (packed Shamir k=5, t=2, n=8, from
+   ``QuantizationSpec.fitted``) and seal it to 8 clerks with the port's own
+   sealed boxes; the snapshot, the clerks' chores, the recipient's reveal,
+   whose ChaCha combine of 10 x 1,663,370 elements runs on the card (K2);
+   one ``sealed round`` line with the stage times, the sealed bytes, the
+   seal and open rates and its checks (the sum against numpy, K2 launched,
+   a flipped ciphertext byte refused by the clerk's open, a participation
+   posted under another agent refused by the server, a key with an
+   altered signature refused by the participant); a round at dim 1,000,
+   below the device threshold, that launches no K2; K2 against its plain
+   version at the reveal fold's shape on the round's seeds, and its
+   ``numbers`` there.
 
 Then the ``{"kernels": [...]}`` line (launches: K1's on the main path, the
 fabrics, the FedAvg round, the bench's K1 route, the ladder's config 3 and
-the model rounds, K2's on the masked path, the fabrics, the FedAvg round and
-the model rounds), and last ``{"ok":
+the model rounds, K2's on the masked path, the fabrics, the FedAvg round,
+the model rounds and the sealed round), and last ``{"ok":
 true, "device": ...}``. Any failed phase raises, and the script exits
 nonzero.
 """
@@ -1458,6 +1474,278 @@ def drivers_phase(card: str, dev, seed: int) -> tuple[int, int]:
     return k1, max_err
 
 
+# phase 14: the sealed aggregation round through the protocol plane: an
+# untrusted in-memory server, a recipient and a committee of clerks with
+# their own keystores, participants that mask, share and seal. Ten
+# participants are the FedAvg paper's per-round cohort, C = 0.1 of its K =
+# 100 clients (McMahan et al., AISTATS 2017, section 3), at the CNN's width
+SEALED_COHORT, SEALED_CLERKS, SEALED_SMALL_DIM = 10, 8, 1_000
+
+
+class _Timed:
+    """Wraps a module function: calls, summed seconds and summed bytes of
+    its first argument (the plaintext for ``seal``, the box for
+    ``seal_open``), for the rates of the sealed round's crypto."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls, self.seconds, self.bytes = 0, 0.0, 0
+
+    def __enter__(self):
+        def timed(data, *args):
+            t0 = time.perf_counter()
+            out = self.fn(data, *args)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.bytes += len(data)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = False) -> dict:
+    """One ChaCha-masked aggregation of ``values`` (field vectors) through
+    ``new_mem_server`` and ``SdaClient``s on ``dev``, in the reference's
+    sequence (tests/test_full_loop.py:40-93): agents and keys uploaded, the
+    aggregation uploaded and begun, one ``participate`` each, the snapshot,
+    every member's ``run_chores(-1)``, the reveal. Times each stage; the
+    recipient's K2 fold by CUDA events around ``combine_masks_device``.
+    With ``with_checks``, also tries a clerking job with one ciphertext
+    byte flipped, a participation posted under another agent and a
+    committee key whose signature was altered. Returns the stage seconds,
+    the revealed vector, the sealed bytes, the seal and open rates and the
+    checks."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.client import SdaClient
+    from sda_tpu_torch.crypto import Keystore, masking, sodium
+    from sda_tpu_torch.protocol import (
+        B64,
+        Aggregation,
+        AggregationId,
+        Binary,
+        ChaChaMasking,
+        ClerkingJob,
+        Encryption,
+        EncryptionKeyId,
+        Labelled,
+        PermissionDeniedError,
+        Signature,
+        Signed,
+        SodiumEncryptionScheme,
+    )
+    from sda_tpu_torch.server import new_mem_server
+
+    dim, p = len(values[0]), scheme.prime_modulus
+    seconds, folds = {}, []
+    real_combine = masking.combine_masks_device
+
+    def timed_combine(seeds, *args, **kwargs):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        out = real_combine(seeds, *args, **kwargs)
+        events[1].record()
+        folds.append((events, np.asarray(seeds)))
+        return out
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    server = new_mem_server()
+
+    def client(name):
+        keystore = Keystore(root / name)
+        return SdaClient(SdaClient.new_agent(keystore), keystore, server, device=dev)
+
+    def upload():
+        recipient = client("recipient")
+        recipient_key = recipient.new_encryption_key()
+        recipient.upload_agent()
+        recipient.upload_encryption_key(recipient_key)
+        clerks = [client(f"clerk{i}") for i in range(SEALED_CLERKS)]
+        for clerk in clerks:
+            key = clerk.new_encryption_key()
+            clerk.upload_agent()
+            clerk.upload_encryption_key(key)
+        aggregation = Aggregation(
+            id=AggregationId.random(), title="sealed round", vector_dimension=dim, modulus=p,
+            recipient=recipient.agent.id, recipient_key=recipient_key,
+            masking_scheme=ChaChaMasking(modulus=p, dimension=dim, seed_bitsize=32 * SEED_WORDS),
+            committee_sharing_scheme=scheme,
+            recipient_encryption_scheme=SodiumEncryptionScheme(),
+            committee_encryption_scheme=SodiumEncryptionScheme())
+        recipient.upload_aggregation(aggregation)
+        recipient.begin_aggregation(aggregation.id)
+        participants = [client(f"participant{i}") for i in range(len(values))]
+        for participant in participants:
+            participant.upload_agent()
+        return recipient, clerks, participants, aggregation
+
+    t_wall = time.perf_counter()
+    with _Timed(sodium, "seal") as seals, _Timed(sodium, "seal_open") as opens:
+        recipient, clerks, participants, aggregation = stage("upload_s", upload)
+        stage("participate_s", lambda: [part.participate(v, aggregation.id)
+                                        for part, v in zip(participants, values)])
+        stage("snapshot_s", lambda: recipient.end_aggregation(aggregation.id))
+        job = server.get_clerking_job(clerks[0].agent, clerks[0].agent.id)
+        stage("clerking_s", lambda: [member.run_chores(-1) for member in [recipient] + clerks])
+        masking.combine_masks_device = timed_combine
+        try:
+            out = stage("reveal_s", lambda: recipient.reveal_aggregation(aggregation.id))
+        finally:
+            masking.combine_masks_device = real_combine
+    seconds["wall_s"] = time.perf_counter() - t_wall
+    torch.cuda.synchronize()
+    seconds["mask_combine_s"] = sum(a.elapsed_time(b) for (a, b), _ in folds) / 1e3 if folds else None
+    checks = {}
+    if with_checks:
+        # a clerking job with one ciphertext byte flipped: the clerk's open
+        # must refuse it
+        raw = bytearray(bytes(job.encryptions[0].inner))
+        raw[len(raw) // 2] ^= 0x01
+        forged = ClerkingJob(id=job.id, clerk=job.clerk, aggregation=job.aggregation,
+                             snapshot=job.snapshot,
+                             encryptions=[Encryption(Binary(bytes(raw)))] + job.encryptions[1:])
+        try:
+            clerks[0].process_clerking_job(forged)
+            checks["flipped_byte_refused"] = False
+        except sodium.SodiumError:
+            checks["flipped_byte_refused"] = True
+        # a participation posted under another agent's identity: the
+        # server's ACL refuses it
+        part = participants[1].new_participation(values[1], aggregation.id)
+        try:
+            server.create_participation(participants[0].agent, part)
+            checks["foreign_participation_refused"] = False
+        except PermissionDeniedError:
+            checks["foreign_participation_refused"] = True
+        # a clerk key uploaded with an altered signature: the server stores
+        # it (it verifies no signature), the participant refuses to seal to it
+        clerk_id, key_id = server.get_committee(recipient.agent, aggregation.id).clerks_and_keys[0]
+        signed = server.get_encryption_key(recipient.agent, key_id)
+        sig = bytearray(signed.signature.data)
+        sig[0] ^= 0x01
+        tampered = Signed(signature=Signature(B64(bytes(sig))), signer=clerk_id,
+                          body=Labelled(EncryptionKeyId.random(), signed.body.body))
+        server.create_encryption_key(clerks[0].agent, tampered)
+        try:
+            participants[2]._fetch_verified_key(clerk_id, tampered.body.id)
+            checks["altered_signature_refused"] = False
+        except ValueError:
+            checks["altered_signature_refused"] = True
+    stored = list(server.server.aggregation_store.iter_participations(aggregation.id))
+    sealed = sum(len(e.inner) for part in stored for _, e in part.clerk_encryptions)
+    sealed += sum(len(part.recipient_encryption.inner) for part in stored)
+    return {"seconds": seconds, "values": out.positive().values, "sealed_bytes": sealed,
+            "seal_mb_s": seals.bytes / seals.seconds / 1e6, "seals": seals.calls,
+            "open_mb_s": opens.bytes / opens.seconds / 1e6, "opens": opens.calls,
+            "folds": folds, "checks": checks}
+
+
+def sealed_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+    """Phase 14: ``sealed_round`` of ``SEALED_COHORT`` float updates of the
+    ``FEDAVG_MODEL`` CNN, each quantized by ``quantize_update`` under
+    ``QuantizationSpec.fitted`` (packed Shamir k=5, t=2, n=8), over 8 clerks;
+    the recipient's ChaCha combine of 10 x 1,663,370 elements (4x the
+    device threshold) goes to K2. Held to: the revealed sum against an
+    independent numpy sum of the inputs mod p, K2 launched, a flipped
+    ciphertext byte refused by the clerk's open, a participation under
+    another agent refused by the server, a key with an altered signature
+    refused by the participant. Then K2 against its plain version at the
+    fold's shape on the round's own seeds, its times there, and a round at
+    ``SEALED_SMALL_DIM`` below the threshold that must launch no K2.
+    Returns ``(k2 launches, k2 max_abs_err)``."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.crypto.masking import ChaChaMasker
+    from sda_tpu_torch.models import QuantizationSpec, quantize_update
+    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.ops.chacha import chacha_blocks_torch
+    from sda_tpu_torch.ops.chacha_cuda import chacha_blocks_cuda, seed_tensor, window_blocks
+
+    spec, scheme = QuantizationSpec.fitted(FEDAVG_FRAC_BITS, FEDAVG_CLIP, SEALED_COHORT)
+    p = spec.modulus
+    rng = np.random.default_rng(seed)
+    dim = sum(math.prod(s) for leaves in FEDAVG_MODEL.values() for s in leaves.values())
+    values = []
+    for _ in range(SEALED_COHORT):
+        update = {layer: {name: rng.normal(0.0, UPDATE_SCALE, size=shape).astype(np.float32)
+                          for name, shape in leaves.items()} for layer, leaves in FEDAVG_MODEL.items()}
+        values.append(quantize_update(update, spec, device=dev)[0].cpu().numpy())
+    want = np.stack(values).sum(axis=0) % p
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
+        out = sealed_round(dev, Path(tmp) / "full", values, scheme, with_checks=True)
+        launches, recoveries = chacha_cuda.launches, chacha_cuda.slack_recoveries
+        exact = bool(np.array_equal(out["values"], want))
+        elements = SEALED_COHORT * dim
+        checks = {"sum": exact, "k2_launched": launches >= 1, **out["checks"]}
+        _line("sealed round", participants=SEALED_COHORT, clerks=SEALED_CLERKS, dim=dim, modulus=p,
+              scheme={"k": scheme.secret_count, "t": scheme.privacy_threshold, "n": scheme.share_count},
+              mask_elements=elements, device_threshold=ChaChaMasker.DEVICE_COMBINE_THRESHOLD,
+              **out["seconds"], sealed_bytes=out["sealed_bytes"], seals=out["seals"],
+              seal_mb_s=out["seal_mb_s"], opens=out["opens"], open_mb_s=out["open_mb_s"],
+              launches={"chacha20": launches}, slack_recoveries=recoveries, exact=exact,
+              checks=checks, card=card)
+        if not all(checks.values()):
+            raise AssertionError(f"sealed round: a check failed: {checks}")
+
+        # the round below the device threshold: the host fold, no K2
+        small = [rng.integers(0, p, size=SEALED_SMALL_DIM, dtype=np.int64) for _ in range(SEALED_COHORT)]
+        chacha_cuda.launches = 0
+        small_out = sealed_round(dev, Path(tmp) / "small", small, scheme)
+        small_exact = bool(np.array_equal(small_out["values"], np.stack(small).sum(axis=0) % p))
+        _line("sealed round", participants=SEALED_COHORT, clerks=SEALED_CLERKS, dim=SEALED_SMALL_DIM,
+              modulus=p, mask_elements=SEALED_COHORT * SEALED_SMALL_DIM, **small_out["seconds"],
+              launches={"chacha20": chacha_cuda.launches}, exact=small_exact, card=card)
+        if not small_exact or chacha_cuda.launches:
+            raise AssertionError(f"small sealed round: exact {small_exact}, "
+                                 f"{chacha_cuda.launches} chacha20 launches (expected 0)")
+
+    # K2 at the reveal fold's shape, on the round's own seeds
+    n_blocks = window_blocks(dim, p)
+    keys = seed_tensor(np.concatenate([seeds for _, seeds in out["folds"]]), dev)
+    got = chacha_blocks_cuda(keys, 0, n_blocks)
+    want_k2 = chacha_blocks_torch(keys, 0, n_blocks)
+    k2_err = int((got.to(torch.int64) - want_k2.to(torch.int64)).abs().max())
+    same = bool(torch.equal(got, want_k2))
+    _line("parity", kernel="chacha20", case=f"sealed round reveal fold {keys.shape[0]} seeds x "
+          f"{n_blocks} blocks", shape=list(got.shape), identical=same)
+    del got, want_k2
+    if not same:
+        raise AssertionError("chacha20 differs from its plain version (sealed round reveal fold)")
+
+    def k2():
+        return chacha_blocks_cuda(keys, 0, n_blocks)
+
+    k2_plain = _time_ms(lambda: chacha_blocks_torch(keys, 0, n_blocks), iters=2)
+    k2_wrapper = [_time_ms(k2, iters=10, warmup=2) for _ in range(2)]
+    seen, seen_ms = _profiled(k2, 10, "chacha20")
+    moved, ops, int_ops, bytes_ms, ops_ms = _k2_bound(keys.shape[0], n_blocks, sm_clocks_per_ms)
+    _line("numbers", kernel="chacha20", path="sealed round", shape=[keys.shape[0], n_blocks, 16],
+          wrapper_ms=k2_wrapper, profiler={"launches_seen": seen, "of": 10,
+                                           "ms_per_seen": seen_ms / seen if seen else None},
+          plain_ms=k2_plain, bytes=moved, int32_ops=ops, int_pipe_ops=int_ops,
+          bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
+          launches=launches, card=card)
+    return launches, k2_err
+
+
+
 def _query_gpu(field: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader,nounits"],
@@ -1826,6 +2114,8 @@ def main(argv=None) -> int:
     # -- 13. weighted and DP FedAvg rounds with server optimizers ----------------
     model_k1, model_k2, model_k1_err, model_k2_err = model_rounds_phase(
         card, dev, args.seed, sm_clocks_per_ms)
+    # -- 14. the sealed aggregation round through the protocol plane ---------------
+    sealed_k2, sealed_k2_err = sealed_round_phase(card, dev, args.seed, sm_clocks_per_ms)
 
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",
@@ -1846,8 +2136,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "sda_tpu_torch/csrc/chacha20.cu",
         "replaces": "sda_tpu/ops/chacha_pallas.py:47",
-        "launches": masked_launches["chacha20"] + fabric_launches["chacha20"] + fedavg_k2 + model_k2,
-        "max_abs_err": max(k2_err, fabric_k2_err, fedavg_k2_err, model_k2_err),
+        "launches": (masked_launches["chacha20"] + fabric_launches["chacha20"] + fedavg_k2 + model_k2
+                     + sealed_k2),
+        "max_abs_err": max(k2_err, fabric_k2_err, fedavg_k2_err, model_k2_err, sealed_k2_err),
         "ms": kernel2_ms,
         "plain_ms": plain2_ms,
         "bound_ms": max(bytes2_ms, ops2_ms),

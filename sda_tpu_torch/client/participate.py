@@ -1,0 +1,94 @@
+"""Participant role: mask, share, seal, upload (counterpart of
+``sda_tpu/client/participate.py``).
+
+The SDA client's participate.rs:37-113: fetch aggregation and committee,
+mask the secrets (sealing the mask to the recipient when the scheme masks),
+share the masked vector across the committee, then per clerk fetch +
+signature-verify the encryption key and seal that clerk's share vector.
+``new_participation`` is separate from upload so retries are idempotent
+under the client-chosen ParticipationId. ``new_participations`` builds a
+batch against one fetch of the aggregation, committee and verified keys,
+and ``upload_participations`` submits it through the service's atomic bulk
+``create_participations``. The reference's pipelined ``participate_many``
+(a worker thread uploading chunk k while chunk k+1 is sealed) and its tier
+routing are not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..protocol import Participation, ParticipationId
+from ..protocol.resources import TIERS_NOT_PORTED
+from .keys import VerifiedKeys
+
+
+class Participating(VerifiedKeys):
+    def participate(self, values, aggregation_id) -> None:
+        participation = self.new_participation(values, aggregation_id)
+        self.upload_participation(participation)
+
+    def upload_participation(self, participation) -> None:
+        self.service.create_participation(self.agent, participation)
+
+    def upload_participations(self, participations) -> None:
+        self.service.create_participations(self.agent, list(participations))
+
+    def new_participation(self, values, aggregation_id) -> Participation:
+        return self.new_participations([values], aggregation_id)[0]
+
+    def new_participations(self, values_list, aggregation_id) -> list:
+        secrets_rows = [np.asarray(v, dtype=np.int64) for v in values_list]
+        aggregation = self.service.get_aggregation(self.agent, aggregation_id)
+        if aggregation is None:
+            raise ValueError("Could not find aggregation")
+        if aggregation.is_tiered():
+            raise NotImplementedError(TIERS_NOT_PORTED)
+        for secrets in secrets_rows:
+            if len(secrets) != aggregation.vector_dimension:
+                raise ValueError("The input length does not match the aggregation.")
+
+        committee = self.service.get_committee(self.agent, aggregation.id)
+        if committee is None:
+            raise ValueError("Could not find committee")
+
+        # mask the secrets
+        masker = self.crypto.new_secret_masker(aggregation.masking_scheme)
+        masked = [masker.mask(secrets) for secrets in secrets_rows]
+
+        # recipient mask encryptions (absent under NoMasking)
+        recipient_encryptions = [None] * len(masked)
+        mask_rows = [m for m, _ in masked]
+        if mask_rows and len(mask_rows[0]) > 0:
+            recipient_key = self._fetch_verified_key(
+                aggregation.recipient, aggregation.recipient_key
+            )
+            mask_encryptor = self.crypto.new_share_encryptor(
+                recipient_key, aggregation.recipient_encryption_scheme
+            )
+            recipient_encryptions = [mask_encryptor.encrypt(m) for m in mask_rows]
+
+        # share the masked secrets: one share vector per clerk, for every
+        # participation in the batch, then seal the whole P x C matrix
+        generator = self.crypto.new_share_generator(aggregation.committee_sharing_scheme)
+        share_rows = [generator.generate(masked_secrets) for _, masked_secrets in masked]
+
+        clerk_ids = [clerk_id for clerk_id, _ in committee.clerks_and_keys]
+        clerk_keys = [
+            self._fetch_verified_key(clerk_id, clerk_key_id)
+            for clerk_id, clerk_key_id in committee.clerks_and_keys
+        ]
+        encryption_rows = self.crypto.encrypt_share_matrix(
+            clerk_keys, aggregation.committee_encryption_scheme, share_rows
+        )
+
+        return [
+            Participation(
+                id=ParticipationId.random(),
+                participant=self.agent.id,
+                aggregation=aggregation.id,
+                recipient_encryption=recipient_encryptions[i],
+                clerk_encryptions=list(zip(clerk_ids, encryption_rows[i])),
+            )
+            for i in range(len(secrets_rows))
+        ]

@@ -1,0 +1,112 @@
+"""File-based client store and keystore (copy of ``sda_tpu/crypto/keystore.py``
+without the Paillier keypair, which the port does not have yet).
+
+The SDA client's file store: one JSON file per object under a directory
+(the reference's alias indirection serves its CLI, not ported), built on
+the atomic ``JsonDir`` (private 0600/0700 permissions — these files hold
+secret keys). The JSON is ``sda_tpu``'s, so a keystore directory written by
+either package loads in the other.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from ..protocol import B32
+from ..protocol.schemes import (
+    PAILLIER_NOT_PORTED,
+    EncryptionKey,
+    SigningKey,
+    VerificationKey,
+    _untag,
+)
+from ..utils.jsondir import JsonDir
+
+
+@dataclass
+class DecryptionKey:
+    """Sodium box secret key."""
+
+    inner: B32
+
+    def to_json(self):
+        return {"Sodium": self.inner.to_json()}
+
+    @classmethod
+    def from_json(cls, obj):
+        _, payload = _untag(obj, ("Sodium",))
+        return cls(B32.from_json(payload))
+
+    @property
+    def data(self) -> bytes:
+        return self.inner.data
+
+
+@dataclass
+class EncryptionKeypair:
+    ek: EncryptionKey
+    dk: DecryptionKey
+
+    def to_json(self):
+        return {"ek": self.ek.to_json(), "dk": self.dk.to_json()}
+
+    @classmethod
+    def from_json(cls, obj):
+        dk = obj["dk"]
+        if isinstance(dk, dict) and "Paillier" in dk:
+            raise NotImplementedError(PAILLIER_NOT_PORTED)
+        return cls(
+            ek=EncryptionKey.from_json(obj["ek"]), dk=DecryptionKey.from_json(obj["dk"])
+        )
+
+
+@dataclass
+class SignatureKeypair:
+    vk: VerificationKey
+    sk: SigningKey
+
+    def to_json(self):
+        return {"vk": self.vk.to_json(), "sk": self.sk.to_json()}
+
+    @classmethod
+    def from_json(cls, obj):
+        return cls(
+            vk=VerificationKey.from_json(obj["vk"]), sk=SigningKey.from_json(obj["sk"])
+        )
+
+
+class Filebased:
+    """One JSON file per object; safe for ids and aliases used here."""
+
+    def __init__(self, path):
+        self._dir = JsonDir(path)
+        self.path = self._dir.path
+
+    def put(self, id: str, obj) -> None:
+        payload = obj.to_json() if hasattr(obj, "to_json") else obj
+        self._dir.put(id, payload)
+
+    def get(self, id: str, from_json=None):
+        payload = self._dir.get(id)
+        if payload is None:
+            return None
+        return from_json(payload) if from_json else payload
+
+    def list_ids(self) -> list:
+        return self._dir.list_ids()
+
+
+class Keystore(Filebased):
+    """Keypair storage keyed by EncryptionKeyId / VerificationKeyId."""
+
+    def put_encryption_keypair(self, key_id, pair: EncryptionKeypair) -> None:
+        self.put(str(key_id), pair)
+
+    def get_encryption_keypair(self, key_id) -> EncryptionKeypair | None:
+        return self.get(str(key_id), EncryptionKeypair.from_json)
+
+    def put_signature_keypair(self, key_id, pair: SignatureKeypair) -> None:
+        self.put(str(key_id), pair)
+
+    def get_signature_keypair(self, key_id) -> SignatureKeypair | None:
+        return self.get(str(key_id), SignatureKeypair.from_json)

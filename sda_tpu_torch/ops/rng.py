@@ -1,19 +1,48 @@
-"""Device draws for simulated participants (counterpart of the device half
-of ``sda_tpu/ops/rng.py``).
+"""Randomness for masks and shares (counterpart of ``sda_tpu/ops/rng.py``).
 
-Each draw takes an explicit ``torch.Generator`` in place of a JAX key and
+Host path: ``uniform_mod_host``, unbiased uniform draws in ``[0, m)`` from OS
+entropy, for the protocol plane's real participants.
+
+Device path: draws for simulated participants. Each draw takes an explicit ``torch.Generator`` in place of a JAX key and
 returns a tensor on that generator's device. The bits differ from JAX's
 threefry and need not match: parity tests hand both packages the same
 host-drawn numbers through the engines' ``draw=`` hooks.
 
 Simulation grade only: real participants draw on their own hosts from OS
-entropy (``sda_tpu/ops/rng.py:uniform_mod_host``), where full-range
-uniformity is a privacy requirement.
+entropy (``uniform_mod_host``), where full-range uniformity is a privacy
+requirement.
 """
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
+
+
+def uniform_mod_host(shape, m: int, entropy=os.urandom) -> np.ndarray:
+    """Unbiased uniform int64 draws in [0, m) from OS entropy, by rejection
+    of the u64 draws at or above the largest multiple of m. The reference's
+    direct OS-entropy path; its route through the C ChaCha plane for large
+    draws is not ported (the port has no C plane)."""
+    if not (0 < m <= 1 << 63):
+        raise ValueError(f"modulus out of range: {m}")
+    n = int(np.prod(shape)) if shape else 1
+    out = np.empty(n, dtype=np.int64)
+    rejection = (1 << 64) % m != 0
+    zone = (1 << 64) - ((1 << 64) % m)  # accept draws < zone
+    filled = 0
+    while filled < n:
+        need = n - filled
+        draw = np.frombuffer(entropy(8 * need), dtype=np.uint64)
+        if rejection:
+            draw = draw[draw < np.uint64(zone)]
+        vals = (draw % np.uint64(m)).astype(np.int64)
+        k = min(len(vals), need)
+        out[filled : filled + k] = vals[:k]
+        filled += k
+    return out.reshape(shape)
 
 
 def _draw(generator: torch.Generator, shape, high: int, dtype=torch.int64):

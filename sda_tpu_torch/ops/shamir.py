@@ -1,7 +1,8 @@
 """Packed and basic Shamir sharing as precomputed mod-p linear maps.
 
-Copy of the parts of ``sda_tpu/ops/shamir.py`` the engine and the model
-plane use (``verify_scheme`` checks ``QuantizationSpec.fitted``'s scheme). One
+Copy of the parts of ``sda_tpu/ops/shamir.py`` the engine, the model plane
+(``verify_scheme`` checks ``QuantizationSpec.fitted``'s scheme) and the
+participants' host sharing (``share_batches``) use. One
 degree-(t+k-1) polynomial hides k secrets: its values on the order-(k+t+1)
 secrets domain are ``[v_0, s_1..s_k, r_1..r_t]`` with v_0 chosen so the top
 coefficient vanishes; clerk i holds the evaluation at omega_shares^(i+1).
@@ -99,6 +100,12 @@ def reconstruction_matrix(scheme, indices) -> np.ndarray:
     xs = [pow(scheme.omega_shares, i + 1, p) for i in indices]
     targets = [pow(scheme.omega_secrets, j, p) for j in range(1, k + 1)]
     return lagrange_matrix(xs, targets, p)
+
+
+def share_batches(secrets: np.ndarray, randomness: np.ndarray, S: np.ndarray, p: int) -> np.ndarray:
+    """Share (B, k) secret batches with (B, t) randomness -> (B, n) shares."""
+    values = np.concatenate([secrets, randomness], axis=1)  # (B, k+t)
+    return modmatmul_np(values, S.T, p)
 
 
 def reconstruct_batches(shares: np.ndarray, L: np.ndarray, p: int) -> np.ndarray:

@@ -1,0 +1,139 @@
+"""The snapshot pipeline — the server's orchestration heart (counterpart of
+``sda_tpu/server/snapshot.py``, flat aggregations only).
+
+The SDA server's snapshot.rs:4-47: freeze the current participation set,
+transpose the (participants x clerks) ciphertext matrix, enqueue one
+durable ClerkingJob per committee member, persist the snapshot, and (when
+the scheme masks) collect every participation's recipient encryption into
+the snapshot mask blob.
+
+The run is a stage pipeline (``SNAPSHOT_STAGES``): freeze -> job fan-out ->
+mask collect -> commit. Everything before the commit stage is idempotent —
+membership freeze is write-once, job ids deterministic, the mask blob a
+plain overwrite of identical content — so a crashed run retried by the
+client replays cleanly into the stores' create-if-identical semantics. The
+reference's share-promotion stage (tiers) and its server-side Paillier mask
+combine are not ported: the server refuses both kinds of aggregation.
+"""
+
+from __future__ import annotations
+
+import logging
+import uuid
+
+from ..protocol import ClerkingJob, ClerkingJobId, ServerError
+from ..utils.metrics import get_metrics
+from . import stores as stores_mod
+
+log = logging.getLogger("sda.server.snapshot")
+
+# Deterministic job ids: uuid5 of (snapshot, clerk position), the
+# reference's namespace. A crashed snapshot run retried by the client
+# re-creates byte-identical jobs, which the stores' create-if-identical
+# semantics absorb — no duplicate jobs, no double-counted results.
+_JOB_NAMESPACE = uuid.UUID("6b1b36cf-4f3a-4bca-8a3c-1d53437e8ed9")
+
+
+def _job_id(snapshot_id, clerk_index: int) -> ClerkingJobId:
+    return ClerkingJobId(uuid.uuid5(_JOB_NAMESPACE, f"{snapshot_id}:{clerk_index}"))
+
+
+def _stage_freeze(server, aggregation, snapshot) -> None:
+    """Freeze the participation set: the consistent cut every later stage
+    (and every retry) reads. Write-once per (aggregation, snapshot)."""
+    with get_metrics().phase("snapshot.freeze"):
+        server.aggregation_store.snapshot_participations(
+            snapshot.aggregation, snapshot.id
+        )
+
+
+def _stage_fanout_jobs(server, aggregation, snapshot) -> None:
+    """Transpose the frozen (participants x clerks) ciphertext matrix and
+    enqueue one durable ClerkingJob per committee member."""
+    metrics = get_metrics()
+    committee = server.aggregation_store.get_committee(snapshot.aggregation)
+    if committee is None:
+        raise ServerError("lost committee")
+
+    log.debug("snapshot %s: transposing + enqueueing clerking jobs", snapshot.id)
+    with metrics.phase("snapshot.transpose"):
+        per_clerk = iter(
+            server.aggregation_store.iter_snapshot_clerk_jobs_chunks(
+                snapshot.aggregation,
+                snapshot.id,
+                len(committee.clerks_and_keys),
+                stores_mod.job_chunk_size(),
+            )
+        )
+    for ix, (clerk_id, _) in enumerate(committee.clerks_and_keys):
+        with metrics.phase("snapshot.transpose"):
+            try:
+                chunks = next(per_clerk)
+            except StopIteration:
+                raise ServerError(
+                    f"transpose yielded fewer than "
+                    f"{len(committee.clerks_and_keys)} clerk columns"
+                )
+        with metrics.phase("snapshot.enqueue"):
+            server.clerking_job_store.enqueue_clerking_job_chunked(
+                ClerkingJob(
+                    id=_job_id(snapshot.id, ix),
+                    clerk=clerk_id,
+                    aggregation=snapshot.aggregation,
+                    snapshot=snapshot.id,
+                    encryptions=[],
+                ),
+                chunks,
+            )
+
+
+def _stage_collect_masks(server, aggregation, snapshot) -> None:
+    """Gather every frozen participation's recipient encryption into the
+    snapshot mask blob (skipped entirely for non-masking schemes)."""
+    if not aggregation.masking_scheme.has_mask():
+        return
+    log.debug("snapshot %s: collecting masking data", snapshot.id)
+    recipient_encryptions = []
+    for part in server.aggregation_store.iter_snapped_participations(
+        snapshot.aggregation, snapshot.id
+    ):
+        if part.recipient_encryption is None:
+            raise ServerError("participation should have had a recipient encryption")
+        recipient_encryptions.append(part.recipient_encryption)
+    server.aggregation_store.create_snapshot_mask(snapshot.id, recipient_encryptions)
+
+
+def _stage_commit(server, aggregation, snapshot) -> None:
+    """Persist the snapshot record — the COMMIT POINT: the retry guard in
+    ``run_snapshot`` keys on it, so every earlier stage must be (and is)
+    idempotent."""
+    server.aggregation_store.create_snapshot(snapshot)
+
+
+#: the pipeline, in order; each stage is f(server, aggregation, snapshot).
+#: Every stage before the final commit is idempotent by construction.
+SNAPSHOT_STAGES = (
+    _stage_freeze,
+    _stage_fanout_jobs,
+    _stage_collect_masks,
+    _stage_commit,
+)
+
+
+def run_snapshot(server, snapshot) -> None:
+    aggregation = server.aggregation_store.get_aggregation(snapshot.aggregation)
+    if aggregation is None:
+        raise ServerError("lost aggregation")
+
+    # Idempotent retry: the snapshot id is client-chosen; re-submitting an
+    # existing snapshot must not enqueue a second set of clerking jobs
+    # (duplicate results would double-count toward result_ready).
+    if server.aggregation_store.get_snapshot(snapshot.aggregation, snapshot.id) is not None:
+        log.debug("snapshot %s: already exists, retry is a no-op", snapshot.id)
+        return
+
+    get_metrics().count("snapshots")
+    log.debug("snapshot %s: freezing participations", snapshot.id)
+    for stage in SNAPSHOT_STAGES:
+        stage(server, aggregation, snapshot)
+    log.debug("snapshot %s: done", snapshot.id)

@@ -1,8 +1,9 @@
-"""The engine's measurement hooks: a process-global registry of counters and
+"""The measurement hooks: a process-global registry of counters and
 histograms and a log of timed spans (counterpart of the part of
-``sda_tpu/telemetry`` the engine uses; the Prometheus exposition, flight
-recorder, time series and log sink serve the server plane and are not
-ported).
+``sda_tpu/telemetry`` the engine and the protocol plane's roles use; the
+gauges, Prometheus exposition, flight recorder, time series, log sink and
+trace-id propagation serve the REST plane, the prefetch pipelines and the
+tiers, none of them ported).
 
 Start the process with ``SDA_TELEMETRY=0`` (or call ``set_enabled(False)``)
 and every operation becomes a branch-and-return. ``snapshot()`` has the

@@ -1,3 +1,3 @@
-from .metrics import torch_trace
+from .metrics import Metrics, get_metrics, torch_trace
 
-__all__ = ["torch_trace"]
+__all__ = ["Metrics", "get_metrics", "torch_trace"]

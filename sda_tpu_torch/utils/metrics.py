@@ -1,10 +1,53 @@
-"""Device profiling (counterpart of ``jax_trace`` in
-``sda_tpu/utils/metrics.py``; the ``Metrics`` facade there is JAX-free,
-serves the client and server planes, and stays in ``sda_tpu``)."""
+"""Phase metrics over the telemetry registry, and device profiling
+(counterpart of ``sda_tpu/utils/metrics.py``).
+
+``Metrics`` is the part of the reference's facade that the snapshot pipeline
+and the clerk call:
+
+- ``count(name)``  -> ``sda_events_total{event=name}``
+- ``phase(name)``  -> ``sda_phase_seconds{phase=name}`` plus a
+  ``phase.<name>`` span.
+
+Its ``report()``/``reset()`` windows serve ``bench.py``'s protocol riders,
+which are not ported. ``torch_trace`` is the counterpart of ``jax_trace``.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import time
+
+from .. import telemetry
+
+_EVENTS = "sda_events_total"
+_PHASES = "sda_phase_seconds"
+
+
+class Metrics:
+    def count(self, name: str, delta: int = 1) -> None:
+        telemetry.counter(_EVENTS, "legacy Metrics.count events", event=name).inc(
+            delta
+        )
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        hist = telemetry.histogram(
+            _PHASES, "legacy Metrics.phase timers", phase=name
+        )
+        t0 = time.perf_counter()
+        with telemetry.span(f"phase.{name}"):
+            try:
+                yield
+            finally:
+                # observed even when the phase body raises (legacy semantics)
+                hist.observe(time.perf_counter() - t0)
+
+
+_GLOBAL = Metrics()
+
+
+def get_metrics() -> Metrics:
+    return _GLOBAL
 
 
 @contextlib.contextmanager

@@ -27,6 +27,9 @@ setup(
         "sda_tpu_torch.ops",
         "sda_tpu_torch.parallel",
         "sda_tpu_torch.protocol",
+        "sda_tpu_torch.crypto",
+        "sda_tpu_torch.server",
+        "sda_tpu_torch.client",
     ],
     ext_modules=[
         Extension(
