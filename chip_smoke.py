@@ -106,11 +106,29 @@ Phases, each reported on its own line:
    below the device threshold, that launches no K2; K2 against its plain
    version at the reveal fold's shape on the round's seeds, and its
    ``numbers`` there.
+15. trainer: ``FederatedTrainer.run_round`` twice over
+   ``DPFederatedAveraging`` at the CNN's width (phase 13's DP setting, the
+   field and scheme from ``fitted_spec``) through the sealed round of
+   phase 14's deployment, ``FedAdam`` as the server step, checkpoints in a
+   temporary directory, 10 participants submitting on 4 threads (each with
+   a child generator for its noise); one ``trainer round`` line each with
+   ``wall_s`` split into ``submit_s``, ``clerking_s``, ``reveal_s``,
+   ``mask_combine_s``, ``apply_s`` and ``save_s``, the checkpoint bytes
+   and its checks (the revealed sum against numpy's sum of the submitted
+   wires, the model against a numpy replay of FedAdam bit for bit, one K2
+   launch); a ``privacy`` line; a fresh trainer's restore, bit-equal to the
+   live one (``trainer restore``); K2 against its plain version at the
+   fold's shape and its ``numbers`` there.
+16. analytics: the port's ``federated_training``, ``federated_analytics``
+   and ``sketch_suite`` examples in process on CUDA clients (one
+   ``example`` line each, return code 0), then one ``SecureHistogram`` and
+   one ``CountMinSketch`` round held exactly against numpy, with no K2
+   launch in the whole phase (``analytics``).
 
 Then the ``{"kernels": [...]}`` line (launches: K1's on the main path, the
 fabrics, the FedAvg round, the bench's K1 route, the ladder's config 3 and
 the model rounds, K2's on the masked path, the fabrics, the FedAvg round,
-the model rounds and the sealed round), and last ``{"ok":
+the model rounds, the sealed round and the trainer rounds), and last ``{"ok":
 true, "device": ...}``. Any failed phase raises, and the script exits
 nonzero.
 """
@@ -963,7 +981,7 @@ def model_round(fed, updates, global_model, optimizer, scheme, seeds, generator,
     the party's noise for a DP driver), per chunk of ``chunk`` masked mod p
     with the expansion of its ``(P, w)`` uint32 ``seeds`` (K2) and shared
     and summed over participants (K1); the recipient reveals the field sum
-    from clerks 1..t+k (K2 unmasks), ``fed.finish_round`` makes the mean
+    from clerks 1..t+k (K2 unmasks), ``fed.mean_from_field_sum`` makes the mean
     (and the total weight) of it, and ``optimizer`` applies the mean to
     ``global_model``. On CPU tensors the kernels' plain versions run.
 
@@ -1001,7 +1019,7 @@ def model_round(fed, updates, global_model, optimizer, scheme, seeds, generator,
         masked = stage("masking_s", lambda: _mask_chunk(seed_words[rows], wires[rows], p))
         acc = stage("sharing_s", lambda: torch.fmod(acc + share_combine_limb_cuda(masked, generator, plan), p))
     field_sum = stage("reveal_s", lambda: _unmask_reveal(acc, plan, scheme, seeds))
-    out = stage("finish_s", lambda: fed.finish_round(field_sum, P))
+    out = stage("finish_s", lambda: fed.mean_from_field_sum(field_sum, P))
     mean, total_weight = out if weights is not None else (out, None)
     new_global = stage("apply_s", lambda: optimizer(global_model, mean))
     seconds["wall_s"] = time.perf_counter() - t0
@@ -1745,6 +1763,357 @@ def sealed_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     return launches, k2_err
 
 
+# phase 15: federated training on the sealed round: ``FederatedTrainer`` over
+# ``DPFederatedAveraging`` at the CNN's width, the DP setting of phase 13,
+# server Adam, checkpoints in a temporary directory, the paper's per-round
+# cohort of 10 (SEALED_COHORT) submitted on TRAINER_PARALLEL threads, over
+# SEALED_CLERKS clerks on ``new_mem_server``; TRAINER_ROUNDS rounds, then a
+# fresh trainer restores the last checkpoint
+TRAINER_ROUNDS, TRAINER_PARALLEL = 2, 4
+
+
+def _wrap(obj, name: str, before=None, after=None):
+    """Replace ``obj.name`` (an instance attribute shadowing the method) by
+    a call that runs ``before(*args)`` first and ``after(out)`` last."""
+    real = getattr(obj, name)
+
+    def call(*args, **kwargs):
+        if before is not None:
+            before(*args)
+        out = real(*args, **kwargs)
+        if after is not None:
+            after(out)
+        return out
+
+    setattr(obj, name, call)
+
+
+def _timed(obj, name: str, seconds: dict, key: str) -> None:
+    """Add the seconds of every call of ``obj.name`` to ``seconds[key]``."""
+    real = getattr(obj, name)
+
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+
+    setattr(obj, name, call)
+
+
+def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+    """Phase 15: ``FederatedTrainer.run_round`` twice over a
+    ``DPFederatedAveraging`` driver of the ``FEDAVG_MODEL`` CNN (L2 clip
+    1.0, noise multiplier 1.0, δ = 1e-6, the field and packed-Shamir scheme
+    from ``fitted_spec``), ``FedAdam`` applying the revealed mean, 10
+    participants on ``TRAINER_PARALLEL`` threads, each update a seeded
+    numpy draw; then a fresh trainer's ``restore_latest``. Held to: each
+    round's revealed field sum against numpy's sum mod p of the wires the
+    participants submitted (recorded as they were submitted), the global
+    model after each round against a host numpy float64 replay of FedAdam
+    over the revealed mean, bit for bit, one K2 launch per round (the
+    recipient's fold of 10 seeds), the restored trainer bit-equal to the
+    live one (model, round index, privacy ledger, FedAdam's state), the
+    last checkpoint on disk; then K2 against its plain version at the
+    fold's shape on the rounds' seeds, and its times there. Returns ``(k2
+    launches, k2 max_abs_err)``."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.client import SdaClient
+    from sda_tpu_torch.crypto import Keystore, masking
+    from sda_tpu_torch.models import DPConfig, DPFederatedAveraging, FedAdam, FederatedTrainer
+    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.ops.chacha import chacha_blocks_torch
+    from sda_tpu_torch.ops.chacha_cuda import chacha_blocks_cuda, seed_tensor, window_blocks
+    from sda_tpu_torch.server import new_mem_server
+
+    P = SEALED_COHORT
+    dim = sum(math.prod(s) for leaves in FEDAVG_MODEL.values() for s in leaves.values())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    global0 = {layer: {name: 0.05 * torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+                       for name, shape in leaves.items()} for layer, leaves in FEDAVG_MODEL.items()}
+    dp = DPConfig(l2_clip=DP_L2_CLIP, noise_multiplier=DP_NOISE_MULTIPLIER, expected_participants=P,
+                  delta=DP_DELTA)
+    spec, scheme = DPFederatedAveraging.fitted_spec(DP_FRAC_BITS, dp, dim)
+    p, scale = spec.modulus, spec.scale
+
+    def trainer_on(ckpt):
+        fed = DPFederatedAveraging(spec, global0, dp, torch.Generator(device=dev).manual_seed(seed + 2),
+                                   device=dev)
+        return FederatedTrainer(fed, global0, checkpoint_dir=ckpt, apply_update=FedAdam(device=dev))
+
+    def update_fn(i):
+        rng = np.random.default_rng([seed, i])  # one stream per participant: thread-safe
+        return lambda model: {layer: {name: rng.normal(0.0, UPDATE_SCALE, size=shape).astype(np.float32)
+                                      for name, shape in leaves.items()}
+                              for layer, leaves in FEDAVG_MODEL.items()}
+
+    k2_total, folds = 0, []
+    real_combine = masking.combine_masks_device
+
+    def timed_combine(seeds, *args, **kwargs):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        out = real_combine(seeds, *args, **kwargs)
+        events[1].record()
+        folds.append((events, np.asarray(seeds)))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ckpt = str(root / "checkpoints")
+        server = new_mem_server()
+
+        def client(name):
+            keystore = Keystore(root / name)
+            member = SdaClient(SdaClient.new_agent(keystore), keystore, server, device=dev)
+            member.upload_agent()
+            return member
+
+        recipient = client("recipient")
+        recipient_key = recipient.new_encryption_key()
+        recipient.upload_encryption_key(recipient_key)
+        clerks = [client(f"clerk{i}") for i in range(SEALED_CLERKS)]
+        for clerk in clerks:
+            clerk.upload_encryption_key(clerk.new_encryption_key())
+        workers = [recipient] + clerks
+        wires, marks, seconds, revealed = [], {}, {}, []
+        submitters = []
+        for i in range(P):
+            participant = client(f"participant{i}")
+            # list.append is atomic: the submitting threads record safely
+            _wrap(participant, "participate", before=lambda values, agg: wires.append(
+                np.array(values, dtype=np.int64)))
+            submitters.append((participant, update_fn(i)))
+        trainer = trainer_on(ckpt)
+        fed = trainer.fed
+        _wrap(fed, "open_round", after=lambda out: marks.update(opened=time.perf_counter()))
+        _wrap(fed, "close_round", before=lambda *a: seconds.update(
+            submit_s=time.perf_counter() - marks["opened"]))
+        for worker in workers:
+            _timed(worker, "run_chores", seconds, "clerking_s")
+        _timed(fed, "reveal_field_sum", seconds, "reveal_s")
+        _wrap(fed, "reveal_field_sum", after=lambda out: revealed.append(out.cpu().numpy()))
+        _wrap(fed, "finish_round", after=lambda out: marks.update(finished=time.perf_counter()))
+        _wrap(trainer, "save", before=lambda: marks.get("finished") and seconds.update(
+            apply_s=time.perf_counter() - marks.pop("finished")))
+        _timed(trainer, "save", seconds, "save_s")
+        host_adam = _HostFedAdam()
+        host_global = _sorted_flat(global0)
+        masking.combine_masks_device = timed_combine
+        try:
+            for round_index in range(TRAINER_ROUNDS):
+                wires.clear()
+                revealed.clear()
+                seconds.clear()
+                del folds[:]
+                torch.cuda.synchronize()
+                chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
+                t0 = time.perf_counter()
+                trainer.run_round(recipient, recipient_key, scheme, submitters, workers,
+                                  parallel_submit=TRAINER_PARALLEL)
+                torch.cuda.synchronize()
+                seconds["wall_s"] = time.perf_counter() - t0
+                launches, recoveries = chacha_cuda.launches, chacha_cuda.slack_recoveries
+                seconds["mask_combine_s"] = sum(a.elapsed_time(b) for (a, b), _ in folds) / 1e3
+                round_seeds = np.concatenate([s for _, s in folds]) if folds else None
+                field_sum = revealed[0]
+                sum_ok = len(wires) == P and bool(np.array_equal(field_sum, np.stack(wires).sum(axis=0) % p))
+                mean = _centered(field_sum, p).astype(np.float64) / scale / P
+                host_global = host_adam(host_global, mean)
+                apply_ok = bool(np.array_equal(_sorted_flat(trainer.global_model), host_global))
+                path = Path(ckpt) / f"round_{trainer.round_index:06d}.npz"
+                account = fed.privacy()
+                checks = {"field_sum": sum_ok, "server_step": apply_ok,
+                          "k2_once": launches == 1 + recoveries and len(folds) == 1,
+                          "checkpoint": path.exists(), "ledger": len(trainer.round_rhos) == round_index + 1}
+                _line("trainer round", round=round_index, participants=P, clerks=SEALED_CLERKS, dim=dim,
+                      modulus=p, frac_bits=spec.frac_bits,
+                      scheme={"k": scheme.secret_count, "t": scheme.privacy_threshold, "n": scheme.share_count},
+                      parallel_submit=TRAINER_PARALLEL, optimizer="FedAdam", **seconds,
+                      checkpoint_bytes=path.stat().st_size if path.exists() else None,
+                      launches={"chacha20": launches}, slack_recoveries=recoveries,
+                      epsilon=account.epsilon, rho=account.rho, exact=all(checks.values()),
+                      checks=checks, card=card)
+                if not all(checks.values()):
+                    raise AssertionError(f"trainer round {round_index}: a check failed: {checks}")
+                k2_total += launches
+        finally:
+            masking.combine_masks_device = real_combine
+        composed = trainer.cumulative_privacy()
+        _line("privacy", driver="trainer", rounds=composed.rounds, epsilon=composed.epsilon,
+              rho=composed.rho, delta=composed.delta)
+
+        # a fresh trainer on the card resumes from the last checkpoint
+        t0 = time.perf_counter()
+        resumed = trainer_on(ckpt)
+        loaded = resumed.restore_latest()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        live, back = trainer.apply_update.state(), resumed.apply_update.state()
+        last = Path(ckpt) / f"round_{TRAINER_ROUNDS:06d}.npz"
+        checks = {
+            "loaded": loaded,
+            "model": all(torch.equal(resumed.global_model[layer][name], trainer.global_model[layer][name])
+                         for layer in FEDAVG_MODEL for name in FEDAVG_MODEL[layer]),
+            "round_index": resumed.round_index == TRAINER_ROUNDS,
+            "rhos": resumed.round_rhos == trainer.round_rhos and len(resumed.round_rhos) == TRAINER_ROUNDS,
+            "delta": resumed.privacy_delta == trainer.privacy_delta == DP_DELTA,
+            "fedadam": set(back) == set(live) == {"m", "v", "t"}
+                       and all(np.array_equal(back[k], live[k]) for k in live),
+            "last_checkpoint": last.exists(),
+        }
+        _line("trainer restore", restore_s=restore_s, checkpoint=last.name,
+              checkpoint_bytes=last.stat().st_size if last.exists() else None,
+              checkpoints=sorted(os.listdir(ckpt)), exact=all(checks.values()), checks=checks, card=card)
+        if not all(checks.values()):
+            raise AssertionError(f"trainer restore: a check failed: {checks}")
+
+    # K2 at the rounds' fold shape, on the last round's seeds
+    n_blocks = window_blocks(dim, p)
+    keys = seed_tensor(round_seeds, dev)
+    got = chacha_blocks_cuda(keys, 0, n_blocks)
+    want_k2 = chacha_blocks_torch(keys, 0, n_blocks)
+    k2_err = int((got.to(torch.int64) - want_k2.to(torch.int64)).abs().max())
+    same = bool(torch.equal(got, want_k2))
+    _line("parity", kernel="chacha20", case=f"trainer round reveal fold {keys.shape[0]} seeds x "
+          f"{n_blocks} blocks", shape=list(got.shape), identical=same)
+    del got, want_k2
+    if not same:
+        raise AssertionError("chacha20 differs from its plain version (trainer round reveal fold)")
+
+    def k2():
+        return chacha_blocks_cuda(keys, 0, n_blocks)
+
+    k2_plain = _time_ms(lambda: chacha_blocks_torch(keys, 0, n_blocks), iters=2)
+    k2_wrapper = [_time_ms(k2, iters=10, warmup=2) for _ in range(2)]
+    seen, seen_ms = _profiled(k2, 10, "chacha20")
+    moved, ops, int_ops, bytes_ms, ops_ms = _k2_bound(keys.shape[0], n_blocks, sm_clocks_per_ms)
+    _line("numbers", kernel="chacha20", path="trainer rounds", shape=[keys.shape[0], n_blocks, 16],
+          wrapper_ms=k2_wrapper, profiler={"launches_seen": seen, "of": 10,
+                                           "ms_per_seen": seen_ms / seen if seen else None},
+          plain_ms=k2_plain, bytes=moved, int32_ops=ops, int_pipe_ops=int_ops,
+          bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
+          launches=k2_total, card=card)
+    return k2_total, k2_err
+
+
+# phase 16: the analytics entry points, each as a user runs it, in this
+# process on CUDA clients at the examples' own sizes; every cohort there is
+# below the reveal's device threshold, so the mask folds stay on the host
+EXAMPLES = ("federated_training", "federated_analytics", "sketch_suite")
+ANALYTICS_PARTICIPANTS, HISTOGRAM_BINS, HISTOGRAM_VALUES = 4, 64, 500
+COUNTMIN_WIDTH, COUNTMIN_DEPTH, COUNTMIN_SEED = 256, 4, 23
+
+
+def _countmin_table(items_per_party, width: int, depth: int, seed: int):
+    """The check's own count-min table of every party's items, summed:
+    BLAKE2b-64 of ``b"cm\\0" + seed (8 bytes) + row (4 bytes) + b"s" +
+    item``, big-endian, mod ``width`` (the sketches' documented hash)."""
+    import hashlib
+
+    import numpy as np
+
+    grid = np.zeros((depth, width), dtype=np.int64)
+    for items in items_per_party:
+        for item in items:
+            for row in range(depth):
+                digest = hashlib.blake2b(b"cm\x00" + seed.to_bytes(8, "big") + row.to_bytes(4, "big")
+                                         + b"s" + item.encode(), digest_size=8).digest()
+                grid[row, int.from_bytes(digest, "big") % width] += 1
+    return grid.reshape(-1)
+
+
+def analytics_phase(card: str, dev, seed: int) -> None:
+    """Phase 16: ``main(["--device", "cuda"])`` of the port's three
+    analytics examples, each of which must return 0 (they check their own
+    results and raise otherwise); then one ``SecureHistogram`` round and
+    one ``CountMinSketch`` round on CUDA clients, their revealed count
+    vector and table held exactly against numpy on the same inputs. Every
+    cohort is below the reveal's device threshold: the phase must launch
+    K2 no time (the host route)."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from sda_tpu_torch.client import SdaClient
+    from sda_tpu_torch.crypto import Keystore
+    from sda_tpu_torch.models import SecureHistogram
+    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.server import new_mem_server
+    from sda_tpu_torch.sketches import CountMinSketch, SketchQuery
+
+    chacha_cuda.launches = 0
+    walls = {}
+    for name in EXAMPLES:
+        module = importlib.import_module(f"sda_tpu_torch.examples.{name}")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = module.main(["--device", str(dev)])
+        walls[name] = time.perf_counter() - t0
+        lines = out.getvalue().splitlines()
+        _line("example", name=name, rc=rc, wall_s=walls[name], lines=len(lines), last=lines[-1],
+              card=card)
+        if rc != 0:
+            raise AssertionError(f"example {name} returned {rc}")
+
+    rng = np.random.default_rng(seed)
+    values = [rng.random(HISTOGRAM_VALUES) for _ in range(ANALYTICS_PARTICIPANTS)]
+    items = [[f"item-{int(v)}" for v in rng.zipf(1.5, size=200) % 1000] for _ in range(ANALYTICS_PARTICIPANTS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        server = new_mem_server()
+
+        def client(name):
+            keystore = Keystore(Path(tmp) / name)
+            member = SdaClient(SdaClient.new_agent(keystore), keystore, server, device=dev)
+            member.upload_agent()
+            return member
+
+        recipient = client("recipient")
+        rkey = recipient.new_encryption_key()
+        recipient.upload_encryption_key(rkey)
+        clerks = [client(f"clerk{i}") for i in range(SEALED_CLERKS)]
+        for clerk in clerks:
+            clerk.upload_encryption_key(clerk.new_encryption_key())
+        parties = [client(f"party{i}") for i in range(ANALYTICS_PARTICIPANTS)]
+
+        def query_round(query, inputs):
+            t0 = time.perf_counter()
+            agg = query.open_round(recipient, rkey)
+            for party, x in zip(parties, inputs):
+                query.submit(party, agg, x)
+            query.close_round(recipient, agg)
+            for member in [recipient] + clerks:
+                member.run_chores(-1)
+            return query.finish(recipient, agg, len(inputs)).cpu().numpy(), time.perf_counter() - t0
+
+        hist = SecureHistogram(HISTOGRAM_BINS, 0.0, 1.0, ANALYTICS_PARTICIPANTS, device=dev)
+        counts, hist_s = query_round(hist, values)
+        want = sum(np.bincount(np.clip(np.floor(v * HISTOGRAM_BINS), 0, HISTOGRAM_BINS - 1).astype(np.int64),
+                               minlength=HISTOGRAM_BINS) for v in values)
+        cm = CountMinSketch(COUNTMIN_WIDTH, COUNTMIN_DEPTH, seed=COUNTMIN_SEED)
+        table, cm_s = query_round(SketchQuery(cm, ANALYTICS_PARTICIPANTS, device=dev), items)
+        want_table = _countmin_table(items, COUNTMIN_WIDTH, COUNTMIN_DEPTH, COUNTMIN_SEED)
+    checks = {"histogram": bool(np.array_equal(counts, want)) and counts.dtype == np.int64,
+              "countmin": bool(np.array_equal(table, want_table)),
+              "k2_launches": chacha_cuda.launches == 0}
+    _line("analytics", examples_s=walls, histogram={"bins": HISTOGRAM_BINS, "total": int(counts.sum()),
+                                                    "wall_s": hist_s},
+          countmin={"width": COUNTMIN_WIDTH, "depth": COUNTMIN_DEPTH, "total": int(table[:COUNTMIN_WIDTH].sum()),
+                    "wall_s": cm_s},
+          launches={"chacha20": chacha_cuda.launches}, exact=all(checks.values()), checks=checks, card=card)
+    if not all(checks.values()):
+        raise AssertionError(f"analytics: a check failed: {checks}")
+
 
 def _query_gpu(field: str) -> str:
     return subprocess.run(
@@ -2116,6 +2485,10 @@ def main(argv=None) -> int:
         card, dev, args.seed, sm_clocks_per_ms)
     # -- 14. the sealed aggregation round through the protocol plane ---------------
     sealed_k2, sealed_k2_err = sealed_round_phase(card, dev, args.seed, sm_clocks_per_ms)
+    # -- 15. DP federated training on the sealed round, checkpoints and a restore -
+    trainer_k2, trainer_k2_err = trainer_phase(card, dev, args.seed, sm_clocks_per_ms)
+    # -- 16. the analytics examples; every cohort below the device threshold -----
+    analytics_phase(card, dev, args.seed)
 
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",
@@ -2137,8 +2510,9 @@ def main(argv=None) -> int:
         "source": "sda_tpu_torch/csrc/chacha20.cu",
         "replaces": "sda_tpu/ops/chacha_pallas.py:47",
         "launches": (masked_launches["chacha20"] + fabric_launches["chacha20"] + fedavg_k2 + model_k2
-                     + sealed_k2),
-        "max_abs_err": max(k2_err, fabric_k2_err, fedavg_k2_err, model_k2_err, sealed_k2_err),
+                     + sealed_k2 + trainer_k2),
+        "max_abs_err": max(k2_err, fabric_k2_err, fedavg_k2_err, model_k2_err, sealed_k2_err,
+                           trainer_k2_err),
         "ms": kernel2_ms,
         "plain_ms": plain2_ms,
         "bound_ms": max(bytes2_ms, ops2_ms),

@@ -9,7 +9,9 @@ The recipient's ChaCha combine is the protocol round's one device step. It
 keeps the reference's size routing: a cohort of at least
 ``DEVICE_COMBINE_THRESHOLD`` seed x dimension elements is expanded and
 folded by ``combine_masks_device`` (the ChaCha20 kernel) on the masker's
-device; a smaller one takes the host ``expand_seed`` fold. The reference
+device; a smaller one takes the host ``expand_seed`` fold, and so does a
+modulus of 2^62 or more, which the device fold's int64 sums cannot hold
+exactly (the host fold's uint64 sums can). The reference
 wraps its device call in a ``try`` that falls back to the host; here there
 is none: a masker made for CUDA launches the kernel or raises, and a masker
 made with ``device="cpu"`` runs the kernel's plain version.
@@ -22,7 +24,7 @@ import numpy as np
 from ..device import resolve_device
 from ..ops.chacha import expand_seed
 from ..ops.chacha_cuda import combine_masks_device
-from ..ops.modular import mod_sum_wide_np, rust_rem_np
+from ..ops.modular import WIDE_MAX_MODULUS, mod_sum_wide_np, rust_rem_np
 from ..ops.rng import uniform_mod_host
 from ..protocol import ChaChaMasking, FullMasking, NoMasking
 
@@ -147,7 +149,8 @@ class ChaChaMasker(SecretMasker, MaskCombiner, SecretUnmasker):
 
     def combine(self, seeds):
         seed_rows = [np.asarray(s, dtype=np.int64).astype(np.uint32) for s in seeds]
-        if len(seed_rows) * self.dimension >= self.DEVICE_COMBINE_THRESHOLD:
+        if (len(seed_rows) * self.dimension >= self.DEVICE_COMBINE_THRESHOLD
+                and self.modulus < WIDE_MAX_MODULUS):
             # the reveal hot loop (receive.rs:102-118): expand + fold on the
             # device, the ChaCha20 kernel on CUDA
             total = combine_masks_device(

@@ -1,6 +1,6 @@
-"""Distributed differential privacy for the FedAvg drivers (counterpart of
-the discrete-Gaussian noise, the zCDP accountant and the FedAvg drivers of
-``sda_tpu/models/dp.py``).
+"""Distributed differential privacy for the FedAvg and statistics drivers
+(counterpart of ``sda_tpu/models/dp.py``: the discrete-Gaussian noise, the
+zCDP accountant, the DP FedAvg drivers and the DP statistics drivers).
 
 Every participant adds a small amount of integer noise to its quantized
 contribution before sharing, so the revealed aggregate carries
@@ -41,6 +41,7 @@ from .federated import (
     _as_tensor,
     tree_layout,
 )
+from .statistics import SecureCovariance, SecureGroupedMean, SecureHistogram, SecureStatistics
 
 # Field headroom reserved for aggregate noise, in units of sigma_total.
 # Sub-Gaussian tail: P(|noise| > k*sigma) <= 2*exp(-k^2/2) ~ 5e-32 at 12.
@@ -341,7 +342,7 @@ def l2_clip_vector(flat, clip: float, device=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The FedAvg drivers' pure half
+# The DP FedAvg drivers
 # ---------------------------------------------------------------------------
 
 
@@ -377,9 +378,10 @@ class _DPRoundMixin:
             self._generator if generator is None else generator,
         )
 
-    def reveal_field_sum(self, field_sum, n_submitted: int) -> torch.Tensor:
-        out = super().reveal_field_sum(field_sum, n_submitted)
-        # the realized cohort: privacy() reports the guarantee the revealed
+    def check_field_sum(self, field_sum, n_submitted: int) -> torch.Tensor:
+        out = super().check_field_sum(field_sum, n_submitted)
+        # the realized cohort, for every revealed sum (``reveal_field_sum``
+        # ends here): privacy() reports the guarantee the revealed
         # aggregate has (dropout shrinks the total noise)
         self._revealed_n = n_submitted
         return out
@@ -427,6 +429,12 @@ class DPFederatedAveraging(_DPRoundMixin, FederatedAveraging):
         return torch.remainder(self.spec.quantize(flat) + self._noise(generator),
                                self.spec.modulus)
 
+    def submit_update(self, participant, aggregation_id, update_tree, *, generator=None) -> None:
+        """Participant: ``wire`` (noise from ``generator``, or from this
+        object's own when None) through full participation."""
+        wire = self.wire(update_tree, generator=generator).cpu().numpy()
+        participant.participate(wire, aggregation_id)
+
 
 class DPWeightedFederatedAveraging(_DPRoundMixin, WeightedFederatedAveraging):
     """Weighted FedAvg under distributed DP: the noise covers updates and
@@ -472,6 +480,11 @@ class DPWeightedFederatedAveraging(_DPRoundMixin, WeightedFederatedAveraging):
         q = super().wire(update_tree, weight)
         return torch.remainder(q + self._noise(generator), self.spec.modulus)
 
+    def submit_update(self, participant, aggregation_id, update_tree, weight: float, *,
+                      generator=None) -> None:
+        wire = self.wire(update_tree, weight, generator=generator).cpu().numpy()
+        participant.participate(wire, aggregation_id)
+
     def _weighted_flat(self, sums: torch.Tensor, total_weight: float) -> torch.Tensor:
         """A noisy total can dip to 0 or below for small cohorts, and by
         then the privacy budget is spent: NaN means and the noisy total let
@@ -479,3 +492,163 @@ class DPWeightedFederatedAveraging(_DPRoundMixin, WeightedFederatedAveraging):
         if total_weight > 0:
             return super()._weighted_flat(sums, total_weight)
         return torch.full((self.dim,), float("nan"), dtype=torch.float64, device=sums.device)
+
+
+# ---------------------------------------------------------------------------
+# The statistics drivers under distributed DP
+# ---------------------------------------------------------------------------
+
+
+class DPSecureStatistics(SecureStatistics):
+    """Cohort mean and variance under distributed DP: ``SecureStatistics``
+    (``[x, x²]`` per coordinate) over a ``DPFederatedAveraging`` round. For
+    per-coordinate ``|x| ≤ c`` the channel's L2 bound
+    ``sqrt(d·(c² + c⁴))`` is the DP clip, so in-bounds submissions are
+    never scaled. Both revealed sums carry noise of std σ_total/2^f per
+    coordinate; the variance inherits it (clamped at 0)."""
+
+    def __init__(self, dim: int, clip: float, n_participants: int, *,
+                 noise_multiplier: float, delta: float = 1e-6, frac_bits: int = 16,
+                 mechanism: str = "dgauss", generator=None, device=None):
+        if clip <= 0:
+            raise ValueError("clip must be positive")
+        self.dim = dim
+        self.clip = float(clip)
+        l2 = math.sqrt(dim * (clip * clip + clip ** 4))
+        self.dp = DPConfig(
+            l2_clip=l2, noise_multiplier=noise_multiplier,
+            expected_participants=n_participants, delta=delta, mechanism=mechanism,
+        )
+        self.spec, self.sharing = DPFederatedAveraging.fitted_spec(frac_bits, self.dp, 2 * dim)
+        template = {"sum": np.zeros(dim), "sumsq": np.zeros(dim)}
+        self.fed = DPFederatedAveraging(self.spec, template, self.dp, generator, device=device)
+
+    def submit(self, participant, aggregation_id, values, *, generator=None) -> None:
+        self.fed.submit_update(participant, aggregation_id, self._checked_tree(values),
+                               generator=generator)
+
+    def privacy(self, n_actual: int | None = None) -> PrivacyAccount:
+        return self.fed.privacy(n_actual)
+
+
+class DPSecureGroupedMean(SecureGroupedMean):
+    """Per-category cohort means under distributed DP. One participant's
+    scatter of at most ``m = max_values`` observations of
+    ``|coordinate| ≤ c`` has L2 bound ``m·sqrt(c²·d + 1)`` (all in one
+    category is the worst case). Noisy counts come back as floats (they may
+    dip negative); means divide by them only where the noisy count is ≥ 1."""
+
+    def __init__(self, groups: int, dim: int, clip: float, n_participants: int, *,
+                 noise_multiplier: float, delta: float = 1e-6, frac_bits: int = 16,
+                 max_values_per_participant: int = 1 << 10, mechanism: str = "dgauss",
+                 generator=None, device=None):
+        if groups < 1 or dim < 1:
+            raise ValueError("groups and dim must be >= 1")
+        if clip <= 0:
+            raise ValueError("clip must be positive")
+        self.groups = groups
+        self.dim = dim
+        self.clip = float(clip)
+        self.max_values = max_values_per_participant
+        m = max_values_per_participant
+        l2 = m * math.sqrt(clip * clip * dim + 1.0)
+        wire = groups * dim + groups
+        self.dp = DPConfig(
+            l2_clip=l2, noise_multiplier=noise_multiplier,
+            expected_participants=n_participants, delta=delta, mechanism=mechanism,
+        )
+        bound = max(clip, 1.0) * m  # the true per-coordinate bound
+        self.spec, self.sharing = DPFederatedAveraging.fitted_spec(
+            frac_bits, self.dp, wire, per_coordinate_bound=bound
+        )
+        template = {"sums": np.zeros((groups, dim)), "counts": np.zeros(groups)}
+        self.fed = DPFederatedAveraging(self.spec, template, self.dp, generator,
+                                        per_coordinate_bound=bound, device=device)
+
+    def submit(self, participant, aggregation_id, observations, *, generator=None) -> None:
+        self.fed.submit_update(participant, aggregation_id, self.local_scatter(observations),
+                               generator=generator)
+
+    def finish(self, recipient, aggregation_id, n_submitted: int) -> dict:
+        """-> {"counts": (groups,) float64 noisy counts, "means": (groups,
+        dim) float64, NaN where the noisy count is < 1}."""
+        tree = self._revealed_tree(recipient, aggregation_id, n_submitted)
+        counts = tree["counts"]
+        means = torch.full((self.groups, self.dim), float("nan"), dtype=torch.float64,
+                           device=counts.device)
+        usable = counts >= 1.0
+        means[usable] = tree["sums"][usable] / counts[usable].unsqueeze(1)
+        return {"counts": counts, "means": means}
+
+    def privacy(self, n_actual: int | None = None) -> PrivacyAccount:
+        return self.fed.privacy(n_actual)
+
+
+class DPSecureCovariance(SecureCovariance):
+    """Cohort covariance and correlation under distributed DP. For
+    per-coordinate ``|x| ≤ c`` the channel ``[x, vech(x xᵀ)]`` has L2
+    bound ``sqrt(d·c² + d(d+1)/2·c⁴)``, tight at x = (c, …, c): the DP
+    clip. The noisy covariance is symmetric but only approximately PSD;
+    its diagonal still clamps at 0."""
+
+    def __init__(self, dim: int, clip: float, n_participants: int, *,
+                 noise_multiplier: float, delta: float = 1e-6, frac_bits: int = 16,
+                 mechanism: str = "dgauss", generator=None, device=None):
+        if dim < 1:
+            raise ValueError("dim must be >= 1")
+        if clip <= 0:
+            raise ValueError("clip must be positive")
+        self.dim = dim
+        self.clip = float(clip)
+        wire = dim + dim * (dim + 1) // 2
+        l2 = math.sqrt(dim * clip * clip + dim * (dim + 1) / 2.0 * clip ** 4)
+        self.dp = DPConfig(
+            l2_clip=l2, noise_multiplier=noise_multiplier,
+            expected_participants=n_participants, delta=delta, mechanism=mechanism,
+        )
+        self.spec, self.sharing = DPFederatedAveraging.fitted_spec(frac_bits, self.dp, wire)
+        template = {"sum": np.zeros(dim), "outer": np.zeros(dim * (dim + 1) // 2)}
+        self.fed = DPFederatedAveraging(self.spec, template, self.dp, generator, device=device)
+        self._triu = tuple(torch.triu_indices(dim, dim, device=self.fed.device))
+
+    def submit(self, participant, aggregation_id, values, *, generator=None) -> None:
+        self.fed.submit_update(participant, aggregation_id, self._checked_tree(values),
+                               generator=generator)
+
+    def privacy(self, n_actual: int | None = None) -> PrivacyAccount:
+        return self.fed.privacy(n_actual)
+
+
+class DPSecureHistogram(SecureHistogram):
+    """Cohort histogram with distributed-DP noise on the counts. One
+    participant's counts have L2 ≤ ``max_values`` (all in one bin), the DP
+    clip. Counts are scaled by ``2^frac_bits`` in the field, so a party's
+    noise of ≥ 1 field unit costs only ``2^-frac_bits`` of a count; the
+    noise is added in integer field space after quantization. ``finish``
+    center-lifts and rescales: noisy counts are floats and may dip
+    negative."""
+
+    def __init__(self, bins: int, lo: float, hi: float, n_participants: int, *,
+                 noise_multiplier: float, delta: float = 1e-6,
+                 max_values_per_participant: int = 1, mechanism: str = "dgauss",
+                 frac_bits: int = 16, generator=None, device=None):
+        self._init_geometry(bins, lo, hi, max_values_per_participant)
+        self.dp = DPConfig(
+            l2_clip=float(max_values_per_participant), noise_multiplier=noise_multiplier,
+            expected_participants=n_participants, delta=delta, mechanism=mechanism,
+        )
+        self.spec, self.sharing = DPFederatedAveraging.fitted_spec(frac_bits, self.dp, bins)
+        self.fed = DPFederatedAveraging(self.spec, {"counts": np.zeros(bins)}, self.dp,
+                                        generator, device=device)
+
+    def submit(self, participant, aggregation_id, values, *, generator=None) -> None:
+        self.fed.submit_update(participant, aggregation_id, {"counts": self.local_counts(values)},
+                               generator=generator)
+
+    def finish(self, recipient, aggregation_id, n_submitted: int) -> torch.Tensor:
+        """-> (bins,) float64 noisy counts (noise std σ_total/2^f a bin)."""
+        raw = self.fed.reveal_field_sum(recipient, aggregation_id, n_submitted)
+        return self.spec.dequantize_sum(raw)
+
+    def privacy(self, n_actual: int | None = None) -> PrivacyAccount:
+        return self.fed.privacy(n_actual)

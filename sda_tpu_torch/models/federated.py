@@ -1,6 +1,7 @@
-"""Federated averaging's model plane: pytrees <-> field vectors.
+"""Federated averaging over secure aggregation: pytrees <-> field vectors,
+and the round drivers.
 
-Counterpart of the pure half of ``sda_tpu/models/federated.py``:
+Counterpart of ``sda_tpu/models/federated.py``:
 
 1. **Pytree <-> flat vector**: ``flatten_pytree`` / ``unflatten_pytree``
    walk a tree in JAX's leaf order, so every participant quantizes the same
@@ -16,14 +17,19 @@ Counterpart of the pure half of ``sda_tpu/models/federated.py``:
    negatives as high residues, and refuses a field that cannot hold the sum
    of ``n_participants`` clipped values without wrapping.
 
-3. **Round drivers, their pure half**: ``FederatedAveraging`` and
-   ``WeightedFederatedAveraging`` hold a template's layout and give what a
-   participant submits (``wire``: the quantized update, or the weighted
-   ``(w·x, w)`` vector) and what the recipient makes of the revealed field
-   sum (``finish_round``: the mean pytree, or the weighted mean and the
-   total weight). Opening, sealing, clerking and revealing the round are
-   the protocol plane's client roles, which the port does not hold; a
-   caller carries the wire vectors through an engine round instead.
+3. **Round drivers**: ``FederatedAveraging`` and
+   ``WeightedFederatedAveraging`` run one FedAvg round over any
+   ``SdaService``, as the reference's do: the recipient opens an
+   aggregation sized to the wire (``open_round``), each participant
+   uploads its quantized update through the full pipeline of mask, share
+   and seal (``submit_update``), the recipient freezes the round
+   (``close_round``) and, once the clerks have run their chores, reveals
+   the field sum (``reveal_field_sum``) and its mean (``finish_round``:
+   the mean pytree, or the weighted mean and the total weight). The pure
+   steps are their own methods, for callers that carry the wire vectors
+   through an engine round instead: ``wire`` (what a participant
+   submits), ``check_field_sum`` (the reveal's refusals on a revealed
+   sum) and ``mean_from_field_sum`` (what ``finish_round`` makes of it).
 
 The float64 operations run in the reference's order, so results are
 bit-equal to it.
@@ -55,6 +61,27 @@ class TreeDef:
     @property
     def num_leaves(self) -> int:
         return 1 if self.kind is None else sum(c.num_leaves for c in self.children)
+
+    def __str__(self) -> str:
+        """JAX's ``PyTreeDef`` text for the same structure, which the
+        reference's checkpoints record: ``PyTreeDef({'b': *, 'w': *})``."""
+        return f"PyTreeDef({self._text()})"
+
+    def _text(self) -> str:
+        if self.kind is None:
+            return "*"
+        if self.kind is type(None):
+            return "None"
+        children = [c._text() for c in self.children]
+        if self.kind is dict:
+            return "{" + ", ".join(f"{k!r}: {c}" for k, c in zip(self.keys, children)) + "}"
+        if self.kind is list:
+            return "[" + ", ".join(children) + "]"
+        if self.kind is tuple:
+            return "(" + ", ".join(children) + ("," if len(children) == 1 else "") + ")"
+        node = (f"OrderedDict[{self.keys!r}]" if self.kind is OrderedDict
+                else f"namedtuple[{self.kind.__name__}]")
+        return f"CustomNode({node}, [{', '.join(children)}])"
 
 
 _LEAF = TreeDef(None)
@@ -258,11 +285,17 @@ def dequantize_mean(field_sum, n: int, spec: QuantizationSpec, treedef, shapes, 
 
 
 class FederatedAveraging:
-    """The pure half of the reference's FedAvg round driver over a
-    template's layout. ``spec.n_participants`` is the field's capacity
+    """One secure FedAvg round over any ``SdaService``, on a template's
+    layout.
+
+    The recipient side (``open_round``, ``close_round``, ``finish_round``)
+    and the participant side (``submit_update``) are separate methods: in a
+    deployment they run on different machines, and the only shared state
+    is the aggregation id. ``spec.n_participants`` is the field's capacity
     (wraparound safety); fewer may submit, and the mean divides by the real
     count. Wire vectors and means live on ``device`` (CUDA unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU); a participant uploads its wire as host int64.
+    """
 
     def __init__(self, spec: QuantizationSpec, template_tree, device=None):
         # layout only: no flat copy of a possibly large template model
@@ -297,24 +330,95 @@ class FederatedAveraging:
         ``submit_update`` hands to participation."""
         return self.spec.quantize(self._validated_flat(update_tree))
 
-    def reveal_field_sum(self, field_sum, n_submitted: int) -> torch.Tensor:
-        """Recipient: the revealed ``(wire_dimension,)`` field sum as a
-        canonical int64 tensor, refused, as the reference refuses it, when
-        nothing was submitted or when more updates were summed than the
-        field holds without wrapping (the sum would be unrecoverable)."""
+    def open_round(self, recipient, recipient_key, committee_sharing_scheme, *,
+                   title: str = "federated-round", masking_scheme=None):
+        """Recipient: create and begin an aggregation sized to the wire;
+        returns its id. A sharing scheme over another field than the
+        spec's is refused; the default masking is ChaCha (seed-compressed,
+        128-bit seeds)."""
+        from ..protocol import Aggregation, AggregationId, ChaChaMasking, SodiumEncryptionScheme
+
+        scheme_mod = getattr(
+            committee_sharing_scheme, "prime_modulus", None
+        ) or getattr(committee_sharing_scheme, "modulus", None)
+        if scheme_mod != self.spec.modulus:
+            raise ValueError(
+                f"sharing scheme field {scheme_mod} != quantization field "
+                f"{self.spec.modulus}"
+            )
+        if masking_scheme is None:
+            masking_scheme = ChaChaMasking(
+                modulus=self.spec.modulus, dimension=self.wire_dimension, seed_bitsize=128
+            )
+        agg = Aggregation(
+            id=AggregationId.random(),
+            title=title,
+            vector_dimension=self.wire_dimension,
+            modulus=self.spec.modulus,
+            recipient=recipient.agent.id,
+            recipient_key=recipient_key,
+            masking_scheme=masking_scheme,
+            committee_sharing_scheme=committee_sharing_scheme,
+            recipient_encryption_scheme=SodiumEncryptionScheme(),
+            committee_encryption_scheme=SodiumEncryptionScheme(),
+        )
+        recipient.upload_aggregation(agg)
+        recipient.begin_aggregation(agg.id)
+        return agg.id
+
+    def submit_update(self, participant, aggregation_id, update_tree) -> None:
+        """Participant: quantize a local update and run full participation."""
+        participant.participate(self.wire(update_tree).cpu().numpy(), aggregation_id)
+
+    def close_round(self, recipient, aggregation_id) -> None:
+        """Recipient: freeze participations and enqueue the clerking jobs."""
+        recipient.end_aggregation(aggregation_id)
+
+    def reveal_field_sum(self, recipient, aggregation_id, n_submitted: int) -> torch.Tensor:
+        """Recipient: reveal and return the ``(wire_dimension,)`` field sum
+        as a canonical int64 tensor on ``self.device``. Call after
+        ``close_round`` and the clerks' chores. Refused when nothing was
+        submitted, and when more updates were summed than the field holds
+        without wrapping, by the caller's count or the server's (the sum
+        would be unrecoverable)."""
+        summed = n_submitted
+        if n_submitted > 0:
+            status = recipient.service.get_aggregation_status(recipient.agent, aggregation_id)
+            if status is not None:
+                summed = max(n_submitted, status.number_of_participations)
+        self._check_count(n_submitted, summed)
+        output = recipient.reveal_aggregation(aggregation_id)
+        return self.check_field_sum(np.asarray(output.positive().values, dtype=np.int64), n_submitted)
+
+    def finish_round(self, recipient, aggregation_id, n_submitted: int):
+        """Recipient: reveal (after clerking) and return the mean pytree."""
+        field_sum = self.reveal_field_sum(recipient, aggregation_id, n_submitted)
+        return self.mean_from_field_sum(field_sum, n_submitted)
+
+    def _check_count(self, n_submitted: int, summed: int) -> None:
+        """Refuse a reveal of nothing, or of more summed updates than the
+        field holds without wraparound."""
         if n_submitted <= 0:
             raise ValueError("no updates were submitted; nothing to reveal")
-        if n_submitted > self.spec.n_participants:
+        if summed > self.spec.n_participants:
             raise ValueError(
-                f"{n_submitted} updates summed but the field only "
+                f"{summed} updates summed but the field only "
                 f"holds {self.spec.n_participants} without wraparound; re-run "
                 f"the round with a spec fitted for the larger cohort"
             )
+
+    def check_field_sum(self, field_sum, n_submitted: int) -> torch.Tensor:
+        """A revealed ``(wire_dimension,)`` field sum as a canonical int64
+        tensor, refused, as ``reveal_field_sum`` refuses it, when nothing
+        was submitted or when more updates were summed than the field
+        holds without wrapping."""
+        self._check_count(n_submitted, n_submitted)
         return positive(_as_tensor(field_sum, torch.int64, self.device), self.spec.modulus)
 
-    def finish_round(self, field_sum, n_submitted: int):
-        """Recipient: the mean-update pytree of ``n_submitted`` updates."""
-        field_sum = self.reveal_field_sum(field_sum, n_submitted)
+    def mean_from_field_sum(self, field_sum, n_submitted: int):
+        """The mean-update pytree of ``n_submitted`` updates from their
+        revealed field sum (``finish_round``'s step after the reveal)."""
+        field_sum = self.check_field_sum(field_sum, n_submitted)
         return dequantize_mean(field_sum, n_submitted, self.spec, self.treedef, self.shapes)
 
 
@@ -355,6 +459,18 @@ class WeightedFederatedAveraging(FederatedAveraging):
     def wire_dimension(self) -> int:
         return self.dim + 1  # update coordinates + the weight
 
+    def open_round(self, recipient, recipient_key, committee_sharing_scheme, *,
+                   title: str = "weighted-federated-round", masking_scheme=None):
+        return super().open_round(
+            recipient, recipient_key, committee_sharing_scheme,
+            title=title, masking_scheme=masking_scheme,
+        )
+
+    def submit_update(self, participant, aggregation_id, update_tree, weight: float) -> None:
+        # the wire is validated and built before ``participant`` is touched
+        wire = self.wire(update_tree, weight).cpu().numpy()
+        participant.participate(wire, aggregation_id)
+
     def wire(self, update_tree, weight: float) -> torch.Tensor:
         """Participant: the quantized ``(w·x, w)`` vector of an update and
         its weight, both checked against their bounds."""
@@ -370,9 +486,9 @@ class WeightedFederatedAveraging(FederatedAveraging):
         w = torch.tensor([float(weight)], dtype=torch.float64, device=flat.device)
         return self.spec.quantize(torch.cat([flat * weight, w]))
 
-    def finish_round(self, field_sum, n_submitted: int):
+    def mean_from_field_sum(self, field_sum, n_submitted: int):
         """-> (weighted-mean pytree, total weight)."""
-        sums = self.spec.dequantize_sum(self.reveal_field_sum(field_sum, n_submitted))
+        sums = self.spec.dequantize_sum(self.check_field_sum(field_sum, n_submitted))
         total_weight = float(sums[-1])
         mean = unflatten_pytree(
             self._weighted_flat(sums, total_weight), self.treedef, self.shapes

@@ -30,6 +30,11 @@ setup(
         "sda_tpu_torch.crypto",
         "sda_tpu_torch.server",
         "sda_tpu_torch.client",
+        "sda_tpu_torch.models",
+        "sda_tpu_torch.telemetry",
+        "sda_tpu_torch.utils",
+        "sda_tpu_torch.examples",
+        "sda_tpu_torch.sketches",
     ],
     ext_modules=[
         Extension(

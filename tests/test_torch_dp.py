@@ -334,7 +334,7 @@ def test_dp_finish_round_and_privacy_match_reference():
     wires = [fed.wire(_update(rng, 0.5)).numpy() for _ in range(7)]
     field_sum = np.sum(wires, axis=0) % fed.spec.modulus
     assert _astuple(fed.privacy()) == _astuple(jfed.privacy())  # configured cohort
-    mean = fed.finish_round(torch.from_numpy(field_sum), 7)
+    mean = fed.mean_from_field_sum(torch.from_numpy(field_sum), 7)
     from sda_tpu.models import dequantize_mean as jdequantize_mean
 
     want = jdequantize_mean(field_sum, 7, jfed.spec, jfed.treedef, jfed.shapes)

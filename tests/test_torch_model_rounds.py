@@ -174,7 +174,7 @@ def test_weighted_finish_bit_equal():
     wires = [jfed._quantized_wire(_tree(rng, 0.3, clip=1.0), w) for w in (600, 1.5, 42, 0.125)]
     field_sum = np.sum(wires, axis=0) % jfed.spec.modulus
     want, want_total = _reference_weighted_finish(jfed, field_sum)
-    got, total = fed.finish_round(torch.from_numpy(field_sum), len(wires))
+    got, total = fed.mean_from_field_sum(torch.from_numpy(field_sum), len(wires))
     assert total == want_total == 643.625
     _assert_trees_equal(got, want)
 
@@ -187,7 +187,7 @@ def test_finish_refusals_match_reference(n, total):
     field_sum = np.zeros(fed.wire_dimension, dtype=np.int64)
     field_sum[-1] = (total * jfed.spec.scale) % jfed.spec.modulus
     with pytest.raises(ValueError) as err:
-        fed.finish_round(torch.from_numpy(field_sum), n)
+        fed.mean_from_field_sum(torch.from_numpy(field_sum), n)
     if n <= 0:
         assert str(err.value) == "no updates were submitted; nothing to reveal"
     elif n > jfed.spec.n_participants:
@@ -216,7 +216,7 @@ def test_plain_driver_matches_reference():
     from sda_tpu.models import dequantize_mean as jdequantize_mean
 
     want_mean = jdequantize_mean(field_sum, 5, jspec, jfed.treedef, jfed.shapes)
-    _assert_trees_equal(fed.finish_round(torch.from_numpy(field_sum), 5), want_mean)
+    _assert_trees_equal(fed.mean_from_field_sum(torch.from_numpy(field_sum), 5), want_mean)
 
 
 # -- server optimizers --------------------------------------------------------

@@ -174,6 +174,24 @@ def test_chacha_device_route_on_the_cpu(monkeypatch):
     np.testing.assert_array_equal(device, want)
 
 
+def test_chacha_combine_takes_the_host_fold_from_2_62(monkeypatch):
+    """A cohort above the device threshold at m = 2^63 - 25: the device
+    fold's int64 sums cannot hold it, so the combine takes the exact host
+    fold (no launch), equal to the reference's host fold of the same
+    seeds (its threshold left as it is)."""
+    from sda_tpu.crypto.masking import ChaChaMasker as JMasker
+
+    calls = []
+    monkeypatch.setattr(tmasking, "combine_masks_device", lambda *a, **k: calls.append(1))
+    m, dim = (1 << 63) - 25, 8
+    masker = tmasking.ChaChaMasker(m, dim, 128, device="cpu")
+    seeds = [masker.mask(np.zeros(dim, dtype=np.int64))[0] for _ in range(3)]
+    masker.DEVICE_COMBINE_THRESHOLD = 1
+    got = masker.combine(seeds)
+    assert calls == []
+    np.testing.assert_array_equal(got, JMasker(m, dim, 128).combine(seeds))
+
+
 def test_round_through_the_device_route(tmp_path, monkeypatch):
     calls = []
     real = tmasking.combine_masks_device
