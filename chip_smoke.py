@@ -124,11 +124,25 @@ Phases, each reported on its own line:
    ``example`` line each, return code 0), then one ``SecureHistogram`` and
    one ``CountMinSketch`` round held exactly against numpy, with no K2
    launch in the whole phase (``analytics``).
+17. rest round: phase 14's round over loopback HTTP — ``python -m
+   sda_tpu_torch.cli.sdad --sqlite <tmp>/sda.db httpd -b 127.0.0.1:0`` as
+   a subprocess (``--file`` where this Python has no ``sqlite3``), every
+   member on its own ``SdaHttpClient`` with binary frames; the same five
+   checks as phase 14 over HTTP, exactly one K2 launch in this (the
+   recipient's) process, and the server's ``/v1/metrics`` request count
+   equal to the requests the clients completed; one ``rest round`` line
+   (stage seconds, requests and bytes each way, wire, store), K2 against
+   its plain version at the fold's shape; then the reference's CLI
+   walkthrough (scripts/simple-cli-example.sh) with each ``sda`` step
+   called in process against an ``sdad --file`` subprocess, which must
+   print ``result: 0 2 2 4 4 6 6 8 8 10`` with no K2 launch (``cli
+   walkthrough`` line).
 
 Then the ``{"kernels": [...]}`` line (launches: K1's on the main path, the
 fabrics, the FedAvg round, the bench's K1 route, the ladder's config 3 and
 the model rounds, K2's on the masked path, the fabrics, the FedAvg round,
-the model rounds, the sealed round and the trainer rounds), and last ``{"ok":
+the model rounds, the sealed round, the trainer rounds and the REST round),
+and last ``{"ok":
 true, "device": ...}``. Any failed phase raises, and the script exits
 nonzero.
 """
@@ -1526,18 +1540,22 @@ class _Timed:
         setattr(self.module, self.name, self.fn)
 
 
-def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = False) -> dict:
+def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = False,
+                 service_for=None) -> dict:
     """One ChaCha-masked aggregation of ``values`` (field vectors) through
-    ``new_mem_server`` and ``SdaClient``s on ``dev``, in the reference's
-    sequence (tests/test_full_loop.py:40-93): agents and keys uploaded, the
+    ``SdaClient``s on ``dev``, in the reference's sequence
+    (tests/test_full_loop.py:40-93): agents and keys uploaded, the
     aggregation uploaded and begun, one ``participate`` each, the snapshot,
-    every member's ``run_chores(-1)``, the reveal. Times each stage; the
-    recipient's K2 fold by CUDA events around ``combine_masks_device``.
-    With ``with_checks``, also tries a clerking job with one ciphertext
-    byte flipped, a participation posted under another agent and a
-    committee key whose signature was altered. Returns the stage seconds,
-    the revealed vector, the sealed bytes, the seal and open rates and the
-    checks."""
+    every member's ``run_chores(-1)``, the reveal. ``service_for(name)``
+    gives the ``SdaService`` the member ``name`` talks to (default: one
+    in-process ``new_mem_server`` for every member), so one round serves
+    each transport. Times each stage; the recipient's K2 fold by CUDA
+    events around ``combine_masks_device``. With ``with_checks``, also
+    tries a clerking job with one ciphertext byte flipped, a participation
+    posted under another agent and a committee key whose signature was
+    altered. Returns the stage seconds, the revealed vector, the sealed
+    bytes (None when the server is not in this process), the seal and open
+    rates and the checks."""
     import numpy as np
     import torch
 
@@ -1578,11 +1596,16 @@ def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = Fals
         seconds[name] = time.perf_counter() - t0
         return out
 
-    server = new_mem_server()
+    server = None
+    if service_for is None:
+        server = new_mem_server()
+
+        def service_for(name):
+            return server
 
     def client(name):
         keystore = Keystore(root / name)
-        return SdaClient(SdaClient.new_agent(keystore), keystore, server, device=dev)
+        return SdaClient(SdaClient.new_agent(keystore), keystore, service_for(name), device=dev)
 
     def upload():
         recipient = client("recipient")
@@ -1614,7 +1637,7 @@ def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = Fals
         stage("participate_s", lambda: [part.participate(v, aggregation.id)
                                         for part, v in zip(participants, values)])
         stage("snapshot_s", lambda: recipient.end_aggregation(aggregation.id))
-        job = server.get_clerking_job(clerks[0].agent, clerks[0].agent.id)
+        job = clerks[0].service.get_clerking_job(clerks[0].agent, clerks[0].agent.id)
         stage("clerking_s", lambda: [member.run_chores(-1) for member in [recipient] + clerks])
         masking.combine_masks_device = timed_combine
         try:
@@ -1642,31 +1665,97 @@ def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = Fals
         # server's ACL refuses it
         part = participants[1].new_participation(values[1], aggregation.id)
         try:
-            server.create_participation(participants[0].agent, part)
+            participants[0].service.create_participation(participants[0].agent, part)
             checks["foreign_participation_refused"] = False
         except PermissionDeniedError:
             checks["foreign_participation_refused"] = True
         # a clerk key uploaded with an altered signature: the server stores
         # it (it verifies no signature), the participant refuses to seal to it
-        clerk_id, key_id = server.get_committee(recipient.agent, aggregation.id).clerks_and_keys[0]
-        signed = server.get_encryption_key(recipient.agent, key_id)
+        clerk_id, key_id = recipient.service.get_committee(
+            recipient.agent, aggregation.id).clerks_and_keys[0]
+        signed = recipient.service.get_encryption_key(recipient.agent, key_id)
         sig = bytearray(signed.signature.data)
         sig[0] ^= 0x01
         tampered = Signed(signature=Signature(B64(bytes(sig))), signer=clerk_id,
                           body=Labelled(EncryptionKeyId.random(), signed.body.body))
-        server.create_encryption_key(clerks[0].agent, tampered)
+        owner = next(clerk for clerk in clerks if clerk.agent.id == clerk_id)
+        owner.service.create_encryption_key(owner.agent, tampered)
         try:
             participants[2]._fetch_verified_key(clerk_id, tampered.body.id)
             checks["altered_signature_refused"] = False
         except ValueError:
             checks["altered_signature_refused"] = True
-    stored = list(server.server.aggregation_store.iter_participations(aggregation.id))
-    sealed = sum(len(e.inner) for part in stored for _, e in part.clerk_encryptions)
-    sealed += sum(len(part.recipient_encryption.inner) for part in stored)
+    sealed = None
+    if server is not None:
+        stored = list(server.server.aggregation_store.iter_participations(aggregation.id))
+        sealed = sum(len(e.inner) for part in stored for _, e in part.clerk_encryptions)
+        sealed += sum(len(part.recipient_encryption.inner) for part in stored)
     return {"seconds": seconds, "values": out.positive().values, "sealed_bytes": sealed,
             "seal_mb_s": seals.bytes / seals.seconds / 1e6, "seals": seals.calls,
             "open_mb_s": opens.bytes / opens.seconds / 1e6, "opens": opens.calls,
             "folds": folds, "checks": checks}
+
+
+def _sealed_updates(dev, rng):
+    """``SEALED_COHORT`` float updates of the ``FEDAVG_MODEL`` CNN drawn from
+    ``rng``, each quantized by ``quantize_update`` under
+    ``QuantizationSpec.fitted``; returns ``(scheme, field vectors)``."""
+    import math
+
+    import numpy as np
+
+    from sda_tpu_torch.models import QuantizationSpec, quantize_update
+
+    spec, scheme = QuantizationSpec.fitted(FEDAVG_FRAC_BITS, FEDAVG_CLIP, SEALED_COHORT)
+    dim = sum(math.prod(s) for leaves in FEDAVG_MODEL.values() for s in leaves.values())
+    values = []
+    for _ in range(SEALED_COHORT):
+        update = {layer: {name: rng.normal(0.0, UPDATE_SCALE, size=shape).astype(np.float32)
+                          for name, shape in leaves.items()} for layer, leaves in FEDAVG_MODEL.items()}
+        values.append(quantize_update(update, spec, device=dev)[0].cpu().numpy())
+    assert len(values[0]) == dim
+    return scheme, values
+
+
+def _k2_at_fold(card: str, dev, folds, dim: int, p: int, sm_clocks_per_ms: float, launches: int,
+                path: str) -> int:
+    """K2 at a reveal fold's shape, on the round's own seeds (``folds`` as
+    ``sealed_round`` returns them): one ``parity`` line against the plain
+    version, which must be identical, and one ``numbers`` line (wrapper by
+    CUDA events, own time by the profiler, plain, bound). Returns K2's
+    max_abs_err there."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.ops.chacha import chacha_blocks_torch
+    from sda_tpu_torch.ops.chacha_cuda import chacha_blocks_cuda, seed_tensor, window_blocks
+
+    n_blocks = window_blocks(dim, p)
+    keys = seed_tensor(np.concatenate([seeds for _, seeds in folds]), dev)
+    got = chacha_blocks_cuda(keys, 0, n_blocks)
+    want_k2 = chacha_blocks_torch(keys, 0, n_blocks)
+    k2_err = int((got.to(torch.int64) - want_k2.to(torch.int64)).abs().max())
+    same = bool(torch.equal(got, want_k2))
+    _line("parity", kernel="chacha20", case=f"{path} reveal fold {keys.shape[0]} seeds x "
+          f"{n_blocks} blocks", shape=list(got.shape), identical=same)
+    del got, want_k2
+    if not same:
+        raise AssertionError(f"chacha20 differs from its plain version ({path} reveal fold)")
+
+    def k2():
+        return chacha_blocks_cuda(keys, 0, n_blocks)
+
+    k2_plain = _time_ms(lambda: chacha_blocks_torch(keys, 0, n_blocks), iters=2)
+    k2_wrapper = [_time_ms(k2, iters=10, warmup=2) for _ in range(2)]
+    seen, seen_ms = _profiled(k2, 10, "chacha20")
+    moved, ops, int_ops, bytes_ms, ops_ms = _k2_bound(keys.shape[0], n_blocks, sm_clocks_per_ms)
+    _line("numbers", kernel="chacha20", path=path, shape=[keys.shape[0], n_blocks, 16],
+          wrapper_ms=k2_wrapper, profiler={"launches_seen": seen, "of": 10,
+                                           "ms_per_seen": seen_ms / seen if seen else None},
+          plain_ms=k2_plain, bytes=moved, int32_ops=ops, int_pipe_ops=int_ops,
+          bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
+          launches=launches, card=card)
+    return k2_err
 
 
 def sealed_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
@@ -1682,27 +1771,17 @@ def sealed_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     fold's shape on the round's own seeds, its times there, and a round at
     ``SEALED_SMALL_DIM`` below the threshold that must launch no K2.
     Returns ``(k2 launches, k2 max_abs_err)``."""
-    import math
     import tempfile
 
     import numpy as np
     import torch
 
     from sda_tpu_torch.crypto.masking import ChaChaMasker
-    from sda_tpu_torch.models import QuantizationSpec, quantize_update
     from sda_tpu_torch.ops import chacha_cuda
-    from sda_tpu_torch.ops.chacha import chacha_blocks_torch
-    from sda_tpu_torch.ops.chacha_cuda import chacha_blocks_cuda, seed_tensor, window_blocks
 
-    spec, scheme = QuantizationSpec.fitted(FEDAVG_FRAC_BITS, FEDAVG_CLIP, SEALED_COHORT)
-    p = spec.modulus
     rng = np.random.default_rng(seed)
-    dim = sum(math.prod(s) for leaves in FEDAVG_MODEL.values() for s in leaves.values())
-    values = []
-    for _ in range(SEALED_COHORT):
-        update = {layer: {name: rng.normal(0.0, UPDATE_SCALE, size=shape).astype(np.float32)
-                          for name, shape in leaves.items()} for layer, leaves in FEDAVG_MODEL.items()}
-        values.append(quantize_update(update, spec, device=dev)[0].cpu().numpy())
+    scheme, values = _sealed_updates(dev, rng)
+    p, dim = scheme.prime_modulus, len(values[0])
     want = np.stack(values).sum(axis=0) % p
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.synchronize()
@@ -1734,32 +1813,8 @@ def sealed_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
             raise AssertionError(f"small sealed round: exact {small_exact}, "
                                  f"{chacha_cuda.launches} chacha20 launches (expected 0)")
 
-    # K2 at the reveal fold's shape, on the round's own seeds
-    n_blocks = window_blocks(dim, p)
-    keys = seed_tensor(np.concatenate([seeds for _, seeds in out["folds"]]), dev)
-    got = chacha_blocks_cuda(keys, 0, n_blocks)
-    want_k2 = chacha_blocks_torch(keys, 0, n_blocks)
-    k2_err = int((got.to(torch.int64) - want_k2.to(torch.int64)).abs().max())
-    same = bool(torch.equal(got, want_k2))
-    _line("parity", kernel="chacha20", case=f"sealed round reveal fold {keys.shape[0]} seeds x "
-          f"{n_blocks} blocks", shape=list(got.shape), identical=same)
-    del got, want_k2
-    if not same:
-        raise AssertionError("chacha20 differs from its plain version (sealed round reveal fold)")
-
-    def k2():
-        return chacha_blocks_cuda(keys, 0, n_blocks)
-
-    k2_plain = _time_ms(lambda: chacha_blocks_torch(keys, 0, n_blocks), iters=2)
-    k2_wrapper = [_time_ms(k2, iters=10, warmup=2) for _ in range(2)]
-    seen, seen_ms = _profiled(k2, 10, "chacha20")
-    moved, ops, int_ops, bytes_ms, ops_ms = _k2_bound(keys.shape[0], n_blocks, sm_clocks_per_ms)
-    _line("numbers", kernel="chacha20", path="sealed round", shape=[keys.shape[0], n_blocks, 16],
-          wrapper_ms=k2_wrapper, profiler={"launches_seen": seen, "of": 10,
-                                           "ms_per_seen": seen_ms / seen if seen else None},
-          plain_ms=k2_plain, bytes=moved, int32_ops=ops, int_pipe_ops=int_ops,
-          bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
-          launches=launches, card=card)
+    k2_err = _k2_at_fold(card, dev, out["folds"], dim, p, sm_clocks_per_ms, launches,
+                         "sealed round")
     return launches, k2_err
 
 
@@ -2113,6 +2168,188 @@ def analytics_phase(card: str, dev, seed: int) -> None:
           launches={"chacha20": chacha_cuda.launches}, exact=all(checks.values()), checks=checks, card=card)
     if not all(checks.values()):
         raise AssertionError(f"analytics: a check failed: {checks}")
+
+
+# phase 17: the REST deployment. Phase 14's round with every member on its
+# own ``SdaHttpClient`` (binary frames on the hot routes) against an
+# ``sdad`` subprocess over loopback HTTP on the sqlite store (the JSON-file
+# store where this Python lacks ``sqlite3``); the recipient's fold runs on
+# K2 in this process. Then the reference's CLI walkthrough
+# (scripts/simple-cli-example.sh) against a second ``sdad`` on the file
+# store, each ``sda`` step called in process
+SDAD_START_S = 120
+CLI_RESULT = "result: 0 2 2 4 4 6 6 8 8 10"
+
+
+def _start_sdad(store_args, log_path: Path):
+    """``python -m sda_tpu_torch.cli.sdad <store_args> httpd -b 127.0.0.1:0``
+    from this checkout, its stderr to ``log_path``; returns ``(process,
+    base url)`` once it prints its ``listening`` line."""
+    import select
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "sda_tpu_torch.cli.sdad", *store_args, "httpd", "-b",
+             "127.0.0.1:0"], cwd=root, env=env, stdout=subprocess.PIPE, stderr=log, text=True)
+    deadline = time.monotonic() + SDAD_START_S
+    while time.monotonic() < deadline:
+        if select.select([proc.stdout], [], [], 1.0)[0]:
+            line = proc.stdout.readline()
+            if line.startswith("sdad: listening on "):
+                return proc, "http://" + line.split("listening on ", 1)[1].strip()
+            if not line:
+                break
+    proc.kill()
+    proc.wait()
+    raise AssertionError(f"sdad {store_args} did not start; stderr:\n{log_path.read_text()[-3000:]}")
+
+
+def _stop(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=10)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def _prometheus_sum(text: str, name: str) -> float:
+    """Sum of every sample of the series ``name`` in a Prometheus body."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def _cli_walkthrough(url: str, root: Path) -> str:
+    """scripts/simple-cli-example.sh's steps through
+    ``sda_tpu_torch.cli.sda.main`` in this process, on CUDA clients; returns
+    the reveal's printed line."""
+    import contextlib
+    import io
+
+    from sda_tpu_torch.cli import sda
+
+    def run(who, *argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = sda.main(["-s", url, "-i", str(root / who), *argv])
+        if rc != 0:
+            raise AssertionError(f"sda {argv} as {who}: rc {rc}")
+        return out.getvalue()
+
+    for who in ("recipient", "clerk-1", "clerk-2", "clerk-3"):
+        run(who, "agent", "create")
+        run(who, "agent", "keys", "create")
+    for who in ("part-1", "part-2", "part-3"):
+        run(who, "agent", "create")
+    key = next(f.stem for f in (root / "recipient" / "keys").glob("*.json") if '"ek"' in f.read_text())
+    agg = "ad3142d8-9a83-4f40-a64a-a8c90b701bde"
+    run("recipient", "aggregations", "create", "--id", agg, "aggro", "10", "433", key, "3")
+    run("recipient", "aggregations", "begin", agg)
+    for who, values in (("part-1", range(10)), ("part-2", [0] * 10), ("part-3", [0, 1] * 5)):
+        run(who, "participate", agg, *map(str, values))
+    run("recipient", "aggregations", "end", agg)
+    for who in ("recipient", "clerk-1", "clerk-2", "clerk-3"):
+        run(who, "clerk", "--once")
+    return run("recipient", "aggregations", "reveal", agg).strip()
+
+
+def rest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+    """Phase 17: phase 14's round (``sealed_round`` with its three checks)
+    over loopback HTTP to an ``sdad --sqlite`` subprocess, each member on its
+    own ``SdaHttpClient``. Held to: the reveal against an independent numpy
+    sum mod p, exactly one K2 launch (plus any slack recovery) in this, the
+    recipient's, process, the three refusals, and the server's
+    ``sda_http_requests_total`` in ``/v1/metrics`` equal to the requests
+    the clients completed. One ``rest round`` line (stage seconds, requests
+    and bytes each way counted at the client, wire mode, store, whether
+    ``sqlite3`` imports, the card); K2 against its plain version at the
+    fold's shape. Then the CLI walkthrough against an ``sdad --file``
+    subprocess, which must print ``CLI_RESULT`` with no K2 launch (``cli
+    walkthrough`` line). Returns ``(k2 launches, k2 max_abs_err)``."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.rest import SdaHttpClient, TokenStore, wire
+
+    try:  # a probe, printed on the line: without sqlite3 the round runs on --file
+        import sqlite3  # noqa: F401
+
+        has_sqlite = True
+    except ImportError:
+        has_sqlite = False
+    rng = np.random.default_rng(seed + 17)
+    scheme, values = _sealed_updates(dev, rng)
+    p, dim = scheme.prime_modulus, len(values[0])
+    want = np.stack(values).sum(axis=0) % p
+    traffic = {"requests": 0, "bytes_up": 0, "bytes_down": 0}
+    real_exchange = SdaHttpClient._exchange
+
+    def counted(self, root, method, target, body, headers):
+        resp = real_exchange(self, root, method, target, body, headers)
+        traffic["requests"] += 1
+        traffic["bytes_up"] += len(body or b"")
+        traffic["bytes_down"] += len(resp.content)
+        return resp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        store = ["--sqlite", str(tmp / "sda.db")] if has_sqlite else ["--file", str(tmp / "store")]
+        proc, url = _start_sdad(store, tmp / "sdad.log")
+        try:
+            def service_for(name):
+                return SdaHttpClient(url, TokenStore(tmp / "round" / name))
+
+            torch.cuda.synchronize()
+            chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
+            SdaHttpClient._exchange = counted
+            try:
+                out = sealed_round(dev, tmp / "round", values, scheme, with_checks=True,
+                                   service_for=service_for)
+            finally:
+                SdaHttpClient._exchange = real_exchange
+            launches, recoveries = chacha_cuda.launches, chacha_cuda.slack_recoveries
+            with urllib.request.urlopen(url + "/v1/metrics", timeout=60) as resp:
+                metrics = resp.read().decode("utf-8")
+        finally:
+            _stop(proc)
+        served = _prometheus_sum(metrics, "sda_http_requests_total")
+        exact = bool(np.array_equal(out["values"], want))
+        checks = {"sum": exact, "one_k2_launch": launches - recoveries == 1,
+                  "metrics_count_requests": served == traffic["requests"], **out["checks"]}
+        _line("rest round", participants=SEALED_COHORT, clerks=SEALED_CLERKS, dim=dim, modulus=p,
+              scheme={"k": scheme.secret_count, "t": scheme.privacy_threshold, "n": scheme.share_count},
+              **out["seconds"], **traffic, served_requests=served, wire=wire.mode(),
+              store=store[0][2:], sqlite3=has_sqlite, seals=out["seals"], seal_mb_s=out["seal_mb_s"],
+              opens=out["opens"], open_mb_s=out["open_mb_s"], launches={"chacha20": launches},
+              slack_recoveries=recoveries, exact=exact, checks=checks, card=card)
+        if not all(checks.values()):
+            raise AssertionError(f"rest round: a check failed: {checks}")
+
+        proc, url = _start_sdad(["--file", str(tmp / "cli-server")], tmp / "sdad-cli.log")
+        try:
+            chacha_cuda.launches = 0
+            t0 = time.perf_counter()
+            result = _cli_walkthrough(url, tmp / "cli")
+            cli_s = time.perf_counter() - t0
+        finally:
+            _stop(proc)
+        _line("cli walkthrough", result=result, wall_s=cli_s, launches={"chacha20": chacha_cuda.launches},
+              card=card)
+        if result != CLI_RESULT or chacha_cuda.launches:
+            raise AssertionError(f"cli walkthrough: {result!r}, {chacha_cuda.launches} chacha20 "
+                                 f"launches (expected {CLI_RESULT!r}, 0)")
+
+    k2_err = _k2_at_fold(card, dev, out["folds"], dim, p, sm_clocks_per_ms, launches, "rest round")
+    return launches, k2_err
 
 
 def _query_gpu(field: str) -> str:
@@ -2489,6 +2726,8 @@ def main(argv=None) -> int:
     trainer_k2, trainer_k2_err = trainer_phase(card, dev, args.seed, sm_clocks_per_ms)
     # -- 16. the analytics examples; every cohort below the device threshold -----
     analytics_phase(card, dev, args.seed)
+    # -- 17. the REST deployment: phase 14's round over loopback HTTP, the CLIs ---
+    rest_k2, rest_k2_err = rest_round_phase(card, dev, args.seed, sm_clocks_per_ms)
 
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",
@@ -2510,9 +2749,9 @@ def main(argv=None) -> int:
         "source": "sda_tpu_torch/csrc/chacha20.cu",
         "replaces": "sda_tpu/ops/chacha_pallas.py:47",
         "launches": (masked_launches["chacha20"] + fabric_launches["chacha20"] + fedavg_k2 + model_k2
-                     + sealed_k2 + trainer_k2),
+                     + sealed_k2 + trainer_k2 + rest_k2),
         "max_abs_err": max(k2_err, fabric_k2_err, fedavg_k2_err, model_k2_err, sealed_k2_err,
-                           trainer_k2_err),
+                           trainer_k2_err, rest_k2_err),
         "ms": kernel2_ms,
         "plain_ms": plain2_ms,
         "bound_ms": max(bytes2_ms, ops2_ms),

@@ -1,9 +1,10 @@
 """File-based client store and keystore (copy of ``sda_tpu/crypto/keystore.py``
 without the Paillier keypair, which the port does not have yet).
 
-The SDA client's file store: one JSON file per object under a directory
-(the reference's alias indirection serves its CLI, not ported), built on
-the atomic ``JsonDir`` (private 0600/0700 permissions — these files hold
+The SDA client's file store (client-store/src/file.rs): one JSON file per
+object under a directory, plus the alias indirection (``alias -> id ->
+object``, store.rs:11-40) the CLI uses to remember "the agent identity in
+this directory". Built on the atomic ``JsonDir`` (private 0600/0700 permissions — these files hold
 secret keys). The JSON is ``sda_tpu``'s, so a keystore directory written by
 either package loads in the other.
 """
@@ -94,6 +95,19 @@ class Filebased:
 
     def list_ids(self) -> list:
         return self._dir.list_ids()
+
+    # alias indirection (client-store/src/store.rs:11-40)
+
+    def put_aliased(self, alias: str, obj) -> None:
+        ident = str(obj.id)
+        self.put(ident, obj)
+        self.put(f"alias-{alias}", {"id": ident})
+
+    def get_aliased(self, alias: str, from_json=None):
+        pointer = self.get(f"alias-{alias}")
+        if pointer is None:
+            return None
+        return self.get(pointer["id"], from_json)
 
 
 class Keystore(Filebased):

@@ -37,6 +37,19 @@ class TypedId:
     def random(cls):
         return cls(uuid.uuid4())
 
+    @classmethod
+    def _from_uuid_bytes(cls, raw: bytes):
+        """Trusted bulk-decode path: build from 16 raw big-endian bytes,
+        bypassing the dispatching constructor and ``uuid.UUID.__init__``
+        (both hot when a binary wire frame carries thousands of id
+        columns). Callers must guarantee ``len(raw) == 16``."""
+        u = object.__new__(uuid.UUID)
+        object.__setattr__(u, "int", int.from_bytes(raw, "big"))
+        object.__setattr__(u, "is_safe", uuid.SafeUUID.unknown)
+        self = object.__new__(cls)
+        self.uuid = u
+        return self
+
     def to_json(self) -> str:
         return str(self.uuid)
 

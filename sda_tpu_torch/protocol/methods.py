@@ -8,13 +8,16 @@ architectural property, SURVEY.md §1).
 
 Every method takes ``caller`` for access control; ``get_*`` methods return
 ``None`` for missing resources. The tier routes of ``sda_tpu``'s interface
-(``complete_clerking_job``, ``get_tier_status``) are not ported.
+(``complete_clerking_job``, ``get_tier_status``) answer with the refusal
+``TIERS_NOT_PORTED``: the port has no tiered aggregation.
 """
 
 from __future__ import annotations
 
 import abc
 from typing import Optional
+
+from .resources import TIERS_NOT_PORTED
 
 
 class SdaService(abc.ABC):
@@ -111,6 +114,11 @@ class SdaService(abc.ABC):
     def create_clerking_result(self, caller, result) -> None:
         """Push the result of a finished clerking job."""
 
+    def complete_clerking_job(self, caller, job_id) -> None:
+        """Retire a job without filing a result: the terminal of the
+        reference's tier share-promotion, which the port does not have."""
+        raise NotImplementedError(TIERS_NOT_PORTED)
+
     # -- recipient (methods.rs:87-112) ----------------------------------------
 
     @abc.abstractmethod
@@ -146,6 +154,11 @@ class SdaService(abc.ABC):
         ``mask_encryption_count``/``clerk_result_count``/``chunk_size``
         set, both payloads fetched range-by-range via
         ``get_snapshot_result_masks`` / ``get_snapshot_result_clerks``."""
+
+    def get_tier_status(self, caller, aggregation_id):
+        """Per-node readiness of a tiered aggregation's derived tree in the
+        reference; the port has no tiered aggregation."""
+        raise NotImplementedError(TIERS_NOT_PORTED)
 
     def get_snapshot_result_masks(self, caller, aggregation_id, snapshot_id, start: int):
         """Fetch one recipient-mask-encryption range

@@ -89,13 +89,27 @@ class Encryption(_SodiumNewtype):
 
     INNER = Binary
     variant = "Sodium"
+    #: ``sda_tpu``'s variant tags, in its order (the binary wire's tag byte)
+    VARIANTS = ("Sodium", "Paillier")
 
     @classmethod
     def from_json(cls, obj):
-        tag, payload = _untag(obj, ("Sodium", "Paillier"))
+        tag, payload = _untag(obj, cls.VARIANTS)
         if tag == "Paillier":
             raise NotImplementedError(PAILLIER_NOT_PORTED)
         return cls(Binary.from_json(payload))
+
+    @classmethod
+    def _from_wire(cls, data: bytes):
+        """Trusted bulk-decode path: wrap sealed-box bytes sliced out of a
+        validated binary frame, bypassing the isinstance-dispatching
+        constructors (hot at thousands of ciphertexts per frame). Callers
+        must pass ``bytes``."""
+        inner = object.__new__(Binary)
+        inner.data = data
+        self = object.__new__(cls)
+        self.inner = inner
+        return self
 
 
 class EncryptionKey(_SodiumNewtype):

@@ -15,6 +15,7 @@ from ..protocol import InvalidRequestError, ServerError
 from .stores import (
     AggregationsStore,
     AgentsStore,
+    AuthTokensStore,
     ClerkingJobsStore,
     paged_job_view,
 )
@@ -26,6 +27,32 @@ def _create_if_identical(table: dict, key, value) -> None:
     if key in table and table[key] != value:
         raise ServerError(f"object already exists: {key}")
     table[key] = value
+
+
+class MemAuthTokensStore(AuthTokensStore):
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._tokens: dict = {}
+
+    def upsert_auth_token(self, token) -> None:
+        with self._lock:
+            self._tokens[token.id] = token
+
+    def register_auth_token(self, token) -> bool:
+        with self._lock:
+            existing = self._tokens.get(token.id)
+            if existing is None:
+                self._tokens[token.id] = token
+                return True
+            return existing == token
+
+    def get_auth_token(self, agent_id):
+        with self._lock:
+            return self._tokens.get(agent_id)
+
+    def delete_auth_token(self, agent_id) -> None:
+        with self._lock:
+            self._tokens.pop(agent_id, None)
 
 
 class MemAgentsStore(AgentsStore):

@@ -6,8 +6,8 @@ server.rs:23-191); ``SdaServerService`` implements the protocol's
 ``SdaService`` interface on top, adding per-route access control as
 server.rs:193-361 does: recipient-only guards on all recipient routes,
 caller == subject on create/upsert routes, and the clerk-job ownership
-double check on result submission. The auth-token routes serve the REST
-binding and are not ported; tiered aggregations and Paillier
+double check on result submission. The auth-token methods serve the REST
+binding's trust-on-first-use login. Tiered aggregations and Paillier
 recipient encryption are not ported: creating one raises
 ``NotImplementedError`` (the schemes' decoders already refuse Paillier).
 """
@@ -22,6 +22,7 @@ from ..protocol import (
     AggregationStatus,
     ChaChaMasking,
     EncryptionKey,
+    InvalidCredentialsError,
     InvalidRequestError,
     PermissionDeniedError,
     Pong,
@@ -36,8 +37,9 @@ from . import stores
 
 
 class SdaServer:
-    def __init__(self, agents_store, aggregation_store, clerking_job_store):
+    def __init__(self, agents_store, auth_tokens_store, aggregation_store, clerking_job_store):
         self.agents_store = agents_store
+        self.auth_tokens_store = auth_tokens_store
         self.aggregation_store = aggregation_store
         self.clerking_job_store = clerking_job_store
 
@@ -311,8 +313,55 @@ class SdaServer:
             return None
         return self.clerking_job_store.get_results_range(snapshot_id, start, count)
 
+    # -- auth ----------------------------------------------------------------
+
+    def upsert_auth_token(self, token) -> None:
+        self.auth_tokens_store.upsert_auth_token(token)
+
+    def register_auth_token(self, token) -> None:
+        """Trust-on-first-use registration: the first token presented for an
+        agent id sticks; later attempts with a different token are rejected
+        (otherwise anyone could re-post a public Agent object and hijack the
+        account by overwriting its token). Delegated to the store as one
+        atomic check-and-write."""
+        if not self.auth_tokens_store.register_auth_token(token):
+            _count_rejection("auth_token")
+            raise InvalidCredentialsError("agent already registered")
+
+    def check_auth_token(self, token):
+        import hmac
+
+        stored = self.auth_tokens_store.get_auth_token(token.id)
+        # constant-time secret compare: a `==` on the token body leaks a
+        # prefix-length timing oracle on a network-facing auth path (the
+        # SDA server itself compares with ==, server.rs:174-186). Compared
+        # as the body's canonical BYTES: a str() coercion would make any
+        # non-string body with a matching repr authenticate, and would
+        # diverge from what register_auth_token actually persisted.
+        if stored is not None and hmac.compare_digest(
+            _token_body_bytes(stored.body), _token_body_bytes(token.body)
+        ):
+            agent = self.agents_store.get_agent(token.id)
+            if agent is None:
+                _count_rejection("auth_token")
+                raise InvalidCredentialsError("Agent not found")
+            return agent
+        _count_rejection("auth_token")
+        raise InvalidCredentialsError("invalid token")
+
+    def delete_auth_token(self, agent_id) -> None:
+        self.auth_tokens_store.delete_auth_token(agent_id)
 
 
+def _token_body_bytes(body) -> bytes:
+    """Canonical byte encoding of an auth-token secret. Only the two wire
+    shapes are comparable; anything else fails closed as a bad credential
+    rather than being repr()-flattened into something comparable."""
+    if isinstance(body, bytes):
+        return bytes(body)
+    if isinstance(body, str):
+        return body.encode("utf-8")
+    raise InvalidCredentialsError("malformed auth token")
 
 
 def _count_rejection(check: str) -> None:

@@ -57,6 +57,13 @@ def _stage_fanout_jobs(server, aggregation, snapshot) -> None:
 
     log.debug("snapshot %s: transposing + enqueueing clerking jobs", snapshot.id)
     with metrics.phase("snapshot.transpose"):
+        # streaming backends enqueue jobs before later columns are even
+        # read — malformed bodies must be rejected up front, or a
+        # mid-stream failure leaves durable jobs for a snapshot that never
+        # commits (see AggregationsStore.validate_snapshot_clerk_jobs)
+        server.aggregation_store.validate_snapshot_clerk_jobs(
+            snapshot.aggregation, snapshot.id, len(committee.clerks_and_keys)
+        )
         per_clerk = iter(
             server.aggregation_store.iter_snapshot_clerk_jobs_chunks(
                 snapshot.aggregation,

@@ -1,11 +1,10 @@
 """Storage abstraction of the orchestration server (copy of
-``sda_tpu/server/stores.py``; the port has the memory backend only).
+``sda_tpu/server/stores.py``).
 
-Three of the four store interfaces of the SDA server's stores.rs: agents,
-aggregations (incl. participations/snapshots/masks), and clerking jobs
-(durable per-clerk pull queues); the auth-token store serves the REST
-binding and is not ported. The server core only talks to these
-interfaces.
+The four store interfaces of the SDA server's stores.rs: agents, auth
+tokens, aggregations (incl. participations/snapshots/masks), and clerking
+jobs (durable per-clerk pull queues). The server core only talks to these
+interfaces; backends plug in underneath (memory, file, sqlite).
 
 ``iter_snapshot_clerk_jobs_data`` is the server's one nontrivial
 computation: transposing the (participants x clerks) ciphertext matrix into
@@ -20,7 +19,10 @@ import abc
 import os
 from typing import Iterable, Iterator, Optional
 
-from ..protocol import ServerError
+from ..protocol import Labelled, ServerError
+
+# AuthToken = Labelled[AgentId, str] (stores.rs:8)
+AuthToken = Labelled
 
 
 def job_page_threshold() -> int:
@@ -49,6 +51,26 @@ def result_chunk_size() -> int:
     """Server-suggested range length for paged snapshot-result delivery.
     Clamped to >= 1."""
     return max(1, int(os.environ.get("SDA_RESULT_CHUNK_SIZE", "4096")))
+
+
+def split_small_column(chunks, threshold: int):
+    """Consume ``chunks`` just far enough to learn whether the column
+    fits within ``threshold`` ciphertexts. Returns ``(column, None)``
+    with the full materialized column when it does — small jobs keep the
+    inline layout — or ``(None, iterator)`` where the iterator replays
+    the buffered prefix and then the remaining ranges. Peak memory is one
+    threshold's worth either way."""
+    import itertools
+
+    buffered: list = []
+    total = 0
+    it = iter(chunks)
+    for block in it:
+        buffered.append(block)
+        total += len(block)
+        if total > threshold:
+            return None, itertools.chain(buffered, it)
+    return [enc for block in buffered for enc in block], None
 
 
 def paged_job_view(job):
@@ -97,6 +119,25 @@ class AgentsStore(BaseStore):
     def suggest_committee(self) -> list:
         """All agents holding at least one registered key, as ClerkCandidates
         (reference jfs impl groups signed keys by signer, agents.rs:66-83)."""
+
+
+class AuthTokensStore(BaseStore):
+    @abc.abstractmethod
+    def upsert_auth_token(self, token: AuthToken) -> None: ...
+
+    @abc.abstractmethod
+    def register_auth_token(self, token: AuthToken) -> bool:
+        """Atomic trust-on-first-use registration: record the token if the
+        agent id has none yet; return whether the presented token is now
+        the valid one (existing identical token also returns True).
+        Check-and-write must be one atomic operation — two concurrent first
+        registrations must not last-writer-win."""
+
+    @abc.abstractmethod
+    def get_auth_token(self, agent_id) -> Optional[AuthToken]: ...
+
+    @abc.abstractmethod
+    def delete_auth_token(self, agent_id) -> None: ...
 
 
 class AggregationsStore(BaseStore):
@@ -164,6 +205,21 @@ class AggregationsStore(BaseStore):
 
     def count_participations_snapshot(self, aggregation_id, snapshot_id) -> int:
         return sum(1 for _ in self.iter_snapped_participations(aggregation_id, snapshot_id))
+
+    def validate_snapshot_clerk_jobs(
+        self, aggregation_id, snapshot_id, clerks_number: int
+    ) -> None:
+        """Reject malformed snapped bodies BEFORE the transpose starts.
+
+        Streaming backends yield columns lazily, after the snapshot
+        pipeline has begun durably enqueueing clerk jobs — a mid-stream
+        failure would leave clerks 0..k-1 holding jobs for a snapshot
+        whose commit point never runs. The pipeline calls this first; a
+        backend whose transpose can fail mid-stream overrides it to raise
+        here instead (sqlite: indexed COUNT; file store: one validation
+        pass). The default is a no-op because the base transpose is eager
+        — it materializes every column before the caller sees the first
+        one, so a malformed body raises before any enqueue."""
 
     def iter_snapshot_clerk_jobs_data(
         self, aggregation_id, snapshot_id, clerks_number: int

@@ -1,19 +1,31 @@
-"""The measurement hooks: a process-global registry of counters and
-histograms and a log of timed spans (counterpart of the part of
-``sda_tpu/telemetry`` the engine and the protocol plane's roles use; the
-gauges, Prometheus exposition, flight recorder, time series, log sink and
-trace-id propagation serve the REST plane, the prefetch pipelines and the
-tiers, none of them ported).
+"""The measurement plane (counterpart of ``sda_tpu/telemetry``): a
+process-global registry of counters, gauges and histograms, a log of timed
+spans carrying a trace id propagated client -> REST (``X-SDA-Trace``) ->
+service -> store, the Prometheus text exposition served at
+``GET /v1/metrics`` and the time-series sampler behind
+``GET /v1/metrics/history``. The reference's flight recorder and JSON log
+sink are not ported.
 
 Start the process with ``SDA_TELEMETRY=0`` (or call ``set_enabled(False)``)
 and every operation becomes a branch-and-return. ``snapshot()`` has the
-reference's layout for the series kinds the port has.
+reference's layout.
 """
 
 from __future__ import annotations
 
-from .registry import DEFAULT_BUCKETS, Counter, Histogram, Registry
-from .spans import SpanLog
+from .prom import CONTENT_TYPE as PROMETHEUS_CONTENT_TYPE
+from .prom import render as render_prometheus
+from .registry import DEFAULT_BUCKETS, Counter, Gauge, Histogram, Registry
+from .spans import (
+    TRACE_HEADER,
+    SpanLog,
+    current_trace_id,
+    new_trace_id,
+    sanitize_trace_id,
+    set_trace_id,
+    trace,
+)
+from .timeseries import TimeSeriesSampler, histogram_quantile, read_rss_mib
 
 _REGISTRY = Registry()
 _SPANS = SpanLog(_REGISTRY)
@@ -35,13 +47,22 @@ def counter(name: str, help: str = "", **labels) -> Counter:
     return _REGISTRY.counter(name, help=help, **labels)
 
 
+def gauge(name: str, help: str = "", **labels) -> Gauge:
+    return _REGISTRY.gauge(name, help=help, **labels)
+
+
 def histogram(name: str, help: str = "", buckets=DEFAULT_BUCKETS, **labels) -> Histogram:
     return _REGISTRY.histogram(name, help=help, buckets=buckets, **labels)
 
 
 def span(name: str, **attrs):
-    """Context manager: time a block and record it as a span."""
+    """Context manager: time a block and record it as a span carrying the
+    current trace id."""
     return _SPANS.span(name, **attrs)
+
+
+def spans(name: str | None = None, trace_id: str | None = None) -> list:
+    return _SPANS.recent(name=name, trace_id=trace_id)
 
 
 def snapshot(include_spans: int = 200) -> dict:
@@ -54,6 +75,10 @@ def snapshot(include_spans: int = 200) -> dict:
             {"name": name, "labels": dict(labels), "value": value}
             for (name, labels), value in sorted(snap["counters"].items())
         ],
+        "gauges": [
+            {"name": name, "labels": dict(labels), "value": value}
+            for (name, labels), value in sorted(snap["gauges"].items())
+        ],
         "histograms": [
             {"name": name, "labels": dict(labels), **hist}
             for (name, labels), hist in sorted(snap["histograms"].items())
@@ -62,6 +87,10 @@ def snapshot(include_spans: int = 200) -> dict:
     if include_spans:
         out["spans"] = _SPANS.recent()[-include_spans:]
     return out
+
+
+def prometheus_text() -> str:
+    return render_prometheus(_REGISTRY.snapshot())
 
 
 def reset() -> None:
@@ -73,15 +102,30 @@ def reset() -> None:
 __all__ = [
     "Counter",
     "DEFAULT_BUCKETS",
+    "Gauge",
     "Histogram",
+    "PROMETHEUS_CONTENT_TYPE",
     "Registry",
     "SpanLog",
+    "TRACE_HEADER",
+    "TimeSeriesSampler",
     "counter",
+    "current_trace_id",
     "enabled",
+    "gauge",
     "get_registry",
     "histogram",
+    "histogram_quantile",
+    "new_trace_id",
+    "prometheus_text",
+    "read_rss_mib",
+    "render_prometheus",
     "reset",
+    "sanitize_trace_id",
     "set_enabled",
+    "set_trace_id",
     "snapshot",
     "span",
+    "spans",
+    "trace",
 ]

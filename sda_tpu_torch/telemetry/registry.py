@@ -1,10 +1,11 @@
-"""Process-wide metrics registry: counters and histograms.
+"""Process-wide metrics registry: counters, gauges and histograms.
 
 Copy of the part of ``sda_tpu/telemetry/registry.py`` the engine uses, with
 the same series identity ``(name, sorted(label items))``, the same
 ``DEFAULT_BUCKETS`` and the same ``snapshot()`` layout. Writes take one lock
-instead of the reference's thread-local shards: the engine records a few
-observations per round, not one per request. ``SDA_TELEMETRY=0`` at start
+instead of the reference's thread-local shards: an uncontended lock costs
+well under a microsecond, against milliseconds for the REST request or
+store operation that records it. ``SDA_TELEMETRY=0`` at start
 (or ``enabled = False``) makes every write a branch-and-return.
 """
 
@@ -42,6 +43,25 @@ class Counter:
             reg._counters[self._key] = reg._counters.get(self._key, 0) + delta
 
 
+class Gauge:
+    """Last-write-wins (merging gauges is meaningless)."""
+
+    __slots__ = ("_registry", "name", "labels", "_key")
+
+    def __init__(self, registry: "Registry", name: str, labels: dict):
+        self._registry = registry
+        self.name = name
+        self.labels = dict(labels)
+        self._key = (name, _labels_key(labels))
+
+    def set(self, value: float) -> None:
+        reg = self._registry
+        if not reg.enabled:
+            return
+        with reg._lock:
+            reg._gauges[self._key] = value
+
+
 class Histogram:
     __slots__ = ("_registry", "name", "labels", "_key", "buckets")
 
@@ -76,6 +96,7 @@ class Registry:
         self.enabled = bool(enabled)
         self._lock = threading.Lock()
         self._counters: dict = {}
+        self._gauges: dict = {}
         self._hists: dict = {}
         #: name -> (kind, buckets | None, help), registered at handle creation
         self._meta: dict = {}
@@ -97,21 +118,27 @@ class Registry:
     def counter(self, name: str, help: str = "", **labels) -> Counter:
         return self._handle("counter", Counter, name, labels, help=help)
 
+    def gauge(self, name: str, help: str = "", **labels) -> Gauge:
+        return self._handle("gauge", Gauge, name, labels, help=help)
+
     def histogram(
         self, name: str, help: str = "", buckets: tuple = DEFAULT_BUCKETS, **labels
     ) -> Histogram:
         return self._handle("histogram", Histogram, name, labels, buckets=tuple(buckets), help=help)
 
     def snapshot(self) -> dict:
-        """``{"counters": {key: int}, "histograms": {key: {buckets, counts,
-        sum, count, max}}, "meta": {name: (kind, buckets, help)}}`` with
+        """``{"counters": {key: int}, "gauges": {key: float}, "histograms":
+        {key: {buckets, counts, sum, count, max}}, "meta": {name: (kind,
+        buckets, help)}}`` with
         ``key = (name, ((label, value), ...))``."""
         with self._lock:
             counters = dict(self._counters)
+            gauges = dict(self._gauges)
             hists = {key: dict(cell, counts=list(cell["counts"])) for key, cell in self._hists.items()}
             meta = dict(self._meta)
         return {
             "counters": counters,
+            "gauges": gauges,
             "histograms": {
                 key: {"buckets": list(meta[key[0]][1]), **cell} for key, cell in hists.items()
             },
@@ -123,4 +150,5 @@ class Registry:
         references stay valid."""
         with self._lock:
             self._counters.clear()
+            self._gauges.clear()
             self._hists.clear()

@@ -35,6 +35,8 @@ setup(
         "sda_tpu_torch.utils",
         "sda_tpu_torch.examples",
         "sda_tpu_torch.sketches",
+        "sda_tpu_torch.rest",
+        "sda_tpu_torch.cli",
     ],
     ext_modules=[
         Extension(

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``sda_tpu_torch`` nor ``chip_smoke.py``
-imports ``jax`` or ``sda_tpu``; entry points default to CUDA and raise
-without it; ``chip_smoke.py`` fails on a host without a GPU."""
+imports ``jax``, ``sda_tpu`` or ``requests`` (which the card's machine may
+lack); entry points default to CUDA and raise without it; ``chip_smoke.py``
+fails on a host without a GPU."""
 
 import ast
 import os
@@ -14,7 +15,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "sda_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "sda_tpu")
+FORBIDDEN = ("jax", "jaxlib", "sda_tpu", "requests")
 
 
 def _imported_modules(path: Path):
@@ -48,6 +49,16 @@ def test_model_plane_drivers_are_scanned():
         assert f"sda_tpu_torch/models/{name}.py" in scanned
 
 
+def test_rest_plane_modules_are_scanned():
+    """The REST deployment's modules hold the port's own copies of
+    reference code: the scan above covers each of them."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("rest/wire", "rest/tokenstore", "rest/server", "rest/client",
+                 "server/filestore", "server/sqlstore", "server/instrument", "telemetry/prom",
+                 "telemetry/timeseries", "utils/faults", "utils/hashring", "cli/sda", "cli/sdad"):
+        assert f"sda_tpu_torch/{name}.py" in scanned
+
+
 def _no_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: this checks the behaviour without one")
@@ -58,7 +69,7 @@ def test_import_leaves_jax_out():
         "import sys, pkgutil, importlib, sda_tpu_torch\n"
         "for m in pkgutil.walk_packages(sda_tpu_torch.__path__, 'sda_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sda_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sda_tpu', 'requests')]\n"
         "assert not bad, bad\n"
         "print('clean', len([m for m in sys.modules if m.startswith('sda_tpu_torch')]))\n"
     )

@@ -121,3 +121,138 @@ def test_torch_trace_writes_a_trace(tmp_path):
     files = os.listdir(tmp_path)
     assert len(files) == 1 and files[0].endswith(".pt.trace.json")
     assert os.path.getsize(tmp_path / files[0]) > 0
+
+
+# -- the REST plane's telemetry: gauges, Prometheus text, time series ---------
+
+from sda_tpu.telemetry import timeseries as jtimeseries  # noqa: E402
+from sda_tpu_torch.telemetry import timeseries  # noqa: E402
+
+BUCKETS = (0.1, 1.0, 10.0)
+
+
+def _bucketize(values, buckets=telemetry.DEFAULT_BUCKETS):
+    import bisect
+
+    counts = [0] * (len(buckets) + 1)
+    for v in values:
+        counts[bisect.bisect_left(buckets, v)] += 1
+    return counts
+
+
+def _feed(registry, rng_seed=0):
+    """The same series into a registry of either package: counters with
+    label values that need escaping, a gauge, histograms."""
+    rng = np.random.default_rng(rng_seed)
+    registry.counter("sda_http_requests_total", "REST requests", method="GET", route="/v1/ping",
+                     status="200").inc(7)
+    registry.counter("sda_http_requests_total", "REST requests", method="POST",
+                     route='/v1/"quoted"\\path\nx', status="201").inc(3)
+    registry.counter("sda_wire_bytes_total", direction="in").inc(4096)
+    registry.counter("sda_fault_injections_total", kind="drop", side="server").inc(2)
+    registry.gauge("sda_pool_utilization", "pool busy share").set(0.375)
+    registry.gauge("sda_tier_depth").set(3)
+    for v in rng.lognormal(-4.0, 1.0, size=50):
+        registry.histogram("sda_http_request_seconds", method="GET", route="/v1/ping").observe(float(v))
+    registry.histogram("sda_store_op_seconds", buckets=BUCKETS, store="sqlite", op="get").observe(0.5)
+    registry.histogram("sda_unobserved_seconds", "registered, never observed")
+
+
+def test_prometheus_text_equals_reference():
+    ours, theirs = telemetry.Registry(enabled=True), jtelemetry.Registry(enabled=True)
+    _feed(ours)
+    _feed(theirs)
+    text = telemetry.render_prometheus(ours.snapshot())
+    assert text == jtelemetry.render_prometheus(theirs.snapshot())
+    assert 'route="/v1/\\"quoted\\"\\\\path\\nx"' in text
+    assert "# TYPE sda_pool_utilization gauge" in text and "sda_pool_utilization 0.375" in text
+    assert "# TYPE sda_unobserved_seconds histogram" in text
+    assert telemetry.PROMETHEUS_CONTENT_TYPE == jtelemetry.PROMETHEUS_CONTENT_TYPE
+
+
+def test_gauge_and_snapshot_layout_match_reference(clean):
+    telemetry.gauge("sda_pool_utilization").set(0.5)
+    jtelemetry.gauge("sda_pool_utilization").set(0.5)
+    snap, jsnap = telemetry.snapshot(), jtelemetry.snapshot()
+    assert snap["gauges"] == jsnap["gauges"] == [
+        {"name": "sda_pool_utilization", "labels": {}, "value": 0.5}]
+    assert set(snap) == set(jsnap)
+    telemetry.set_enabled(False)
+    telemetry.gauge("sda_pool_utilization").set(9.0)
+    assert telemetry.snapshot()["gauges"][0]["value"] == 0.5
+
+
+def test_trace_ids_follow_the_reference(clean):
+    assert telemetry.TRACE_HEADER == jtelemetry.TRACE_HEADER == "X-SDA-Trace"
+    for raw in ("abc-123", "a" * 64, "a" * 65, "bad id", "x;y", "", None, " ok.id:7 "):
+        assert telemetry.sanitize_trace_id(raw) == jtelemetry.sanitize_trace_id(raw)
+    with telemetry.trace("trace-one") as tid:
+        assert telemetry.current_trace_id() == tid == "trace-one"
+        with telemetry.span("store.get"):
+            pass
+    assert telemetry.current_trace_id() is None
+    assert [s["trace_id"] for s in telemetry.spans(name="store.")] == ["trace-one"]
+    assert telemetry.spans(trace_id="nope") == []
+
+
+@pytest.mark.parametrize("q", [0.0, 0.5, 0.95, 0.99, 1.0, 2.0, -1.0])
+@pytest.mark.parametrize("case", ["lognormal", "empty", "one bucket", "inf bucket", "first bucket"])
+def test_histogram_quantile_equals_reference(case, q):
+    buckets = telemetry.DEFAULT_BUCKETS if case == "lognormal" else BUCKETS
+    counts = {
+        "lognormal": _bucketize(np.random.default_rng(7).lognormal(-4.0, 1.0, size=5000)),
+        "empty": [0, 0, 0, 0],
+        "one bucket": [0, 10, 0, 0],
+        "inf bucket": [0, 0, 0, 5],
+        "first bucket": [1, 0, 0, 0],
+    }[case]
+    got = timeseries.histogram_quantile(q, buckets, counts)
+    assert got == jtimeseries.histogram_quantile(q, buckets, counts)
+
+
+def _history(seed, procs):
+    rng = np.random.default_rng(seed)
+    out = []
+    for p in range(procs):
+        samples = []
+        for i in range(6):
+            t = 1000.0 + 0.7 * i + 0.1 * p
+            samples.append({
+                "t": t, "dt_s": 0.7, "rss_mib": float(rng.integers(50, 90)),
+                "routes": {"/v1/ping": {"rps": float(rng.integers(1, 9)), "p50_s": 0.001,
+                                        "p99_s": float(rng.random())}},
+                "store_ops": {"mem.get": {"ops_s": 2.0, "p99_s": float(rng.random())}},
+                "wire_bytes_per_s": {"in": 10.0 * i, "out": 5.0},
+                "rates": {"sda_rest_retries_total": 0.5},
+                **({"shards": {"0": 1.5}} if p else {}),
+            })
+        out.append({"running": True, "interval_s": 0.7, "samples": samples} if p % 2 == 0
+                   else samples)
+    return out
+
+
+@pytest.mark.parametrize("bucket_s", [None, 1.0, 2.5])
+@pytest.mark.parametrize("procs", [1, 3])
+def test_merge_histories_equals_reference(procs, bucket_s):
+    histories = _history(procs, procs)
+    assert (timeseries.merge_histories(histories, bucket_s)
+            == jtimeseries.merge_histories(histories, bucket_s))
+
+
+def test_sampler_windows_equal_reference():
+    """The same events into both packages' registries: every banked window
+    equals the reference sampler's (RSS aside, which is the process's)."""
+    ours, theirs = telemetry.Registry(enabled=True), jtelemetry.Registry(enabled=True)
+    samplers = [timeseries.TimeSeriesSampler(registry=ours, interval_s=60, window=8),
+                jtimeseries.TimeSeriesSampler(registry=theirs, interval_s=60, window=8)]
+    t0 = 1000.0
+    for s in samplers:
+        s._prev_t = t0
+    for tick in range(3):
+        for reg in (ours, theirs):
+            _feed(reg, rng_seed=tick)
+        got, want = (s.sample_once(now=t0 + 2.0 * (tick + 1)) for s in samplers)
+        got.pop("rss_mib")
+        want.pop("rss_mib")
+        assert got == want
+    assert [s["t"] for s in samplers[0].history()] == [s["t"] for s in samplers[1].history()]
