@@ -137,11 +137,30 @@ Phases, each reported on its own line:
    called in process against an ``sdad --file`` subprocess, which must
    print ``result: 0 2 2 4 4 6 6 8 8 10`` with no K2 launch (``cli
    walkthrough`` line).
+18. tier round: the scale-out plane — two ``python -m
+   sda_tpu_torch.cli.sdad --sqlite <tmp>/store --shards 2 --replicas 2``
+   frontends over one root, every member on a two-root ``SdaHttpClient``;
+   phase 14's aggregation made tiered (``tiers=2``, two sub-cohorts, share
+   promotion), 10 participants whose seeded ids put at least 3 in each
+   sub-cohort, one pool of 8 clerks wrapped over the 3 nodes, through
+   ``setup_tier_round(..., frontends=2)`` and ``run_tier_round``. One
+   shard's ``shard-NN.down`` marker is touched after the participations
+   and removed before the root's reveal, which waits for both frontends'
+   hint queues to drain. One ``tier round`` line (stage seconds, each
+   fold's ``mask_combine_s``, requests and bytes, hints, K2 launches) and
+   its checks: the reveal against numpy's sum mod p, one reconstruction in
+   the whole round, K2 launched once per fold of at least 2^22 elements
+   (the two promoters' and the root's), writes hinted while the shard was
+   down and none left after the heal, the servers' summed
+   ``sda_http_requests_total`` equal to the requests the clients completed
+   (with the phase's own metrics polls); K2 against its plain version at
+   each fold's shape.
 
 Then the ``{"kernels": [...]}`` line (launches: K1's on the main path, the
 fabrics, the FedAvg round, the bench's K1 route, the ladder's config 3 and
 the model rounds, K2's on the masked path, the fabrics, the FedAvg round,
-the model rounds, the sealed round, the trainer rounds and the REST round),
+the model rounds, the sealed round, the trainer rounds, the REST round and
+the tier round),
 and last ``{"ok":
 true, "device": ...}``. Any failed phase raises, and the script exits
 nonzero.
@@ -2181,14 +2200,16 @@ SDAD_START_S = 120
 CLI_RESULT = "result: 0 2 2 4 4 6 6 8 8 10"
 
 
-def _start_sdad(store_args, log_path: Path):
+def _start_sdad(store_args, log_path: Path, env=None):
     """``python -m sda_tpu_torch.cli.sdad <store_args> httpd -b 127.0.0.1:0``
-    from this checkout, its stderr to ``log_path``; returns ``(process,
-    base url)`` once it prints its ``listening`` line."""
+    from this checkout, with ``env`` added to its environment and its stderr
+    to ``log_path``; returns ``(process, base url)`` once it prints its
+    ``listening`` line."""
     import select
 
     root = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    env = {**os.environ, **(env or {}),
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "sda_tpu_torch.cli.sdad", *store_args, "httpd", "-b",
@@ -2215,12 +2236,15 @@ def _stop(proc) -> None:
         proc.wait()
 
 
-def _prometheus_sum(text: str, name: str) -> float:
-    """Sum of every sample of the series ``name`` in a Prometheus body."""
+def _prometheus_sum(text: str, name: str, **labels) -> float:
+    """Sum of the samples of the series ``name`` in a Prometheus body whose
+    labels include ``labels``."""
     total = 0.0
     for line in text.splitlines():
         if line.startswith(name + "{") or line.startswith(name + " "):
-            total += float(line.rsplit(" ", 1)[1])
+            head, value = line.rsplit(" ", 1)
+            if all(f'{k}="{v}"' in head for k, v in labels.items()):
+                total += float(value)
     return total
 
 
@@ -2349,6 +2373,298 @@ def rest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
                                  f"launches (expected {CLI_RESULT!r}, 0)")
 
     k2_err = _k2_at_fold(card, dev, out["folds"], dim, p, sm_clocks_per_ms, launches, "rest round")
+    return launches, k2_err
+
+
+# phase 18: the scale-out plane, the SDA deployment for cohorts larger than
+# one committee and one store can serve (the tree of arXiv 2201.00864).
+# Two ``sdad --sqlite ROOT --shards 2 --replicas 2`` frontends over one root,
+# every member on a two-root ``SdaHttpClient``; phase 14's aggregation made
+# tiered (two sub-cohorts under the root, share promotion), the paper's
+# per-round cohort of 10, one pool of 8 clerks wrapped over the 3 nodes.
+TIER_FRONTENDS, TIER_SHARDS, TIER_REPLICAS, TIER_SUB_COHORTS = 2, 2, 2, 2
+# the frontends' hinted-handoff repair interval (the reference's default is
+# 0.5 s); the drain after the heal is polled until both queues read 0
+TIER_HANDOFF_S, TIER_DRAIN_S = 0.2, 120
+# failed replays of one hint a frontend allows before it drops the hint.
+# Each frontend replays only its own hints, so a hint whose write depends on
+# a write the other frontend hinted (a clerking result on its job's enqueue)
+# fails until the other has replayed it. The default 8 tries span 1.6 s at
+# this interval, less than one frontend's replay of this round's writes
+# (~12 s on the H100's host); a dropped hint leaves the healed replica
+# without the write, and the root's reveal then reads a stale result
+# count. So the budget covers the drain deadline.
+TIER_HANDOFF_ATTEMPTS = int(TIER_DRAIN_S / TIER_HANDOFF_S)
+
+
+def _tier_agent_ids(rng, aggregation, tiers_mod, agent_id_cls, count: int, at_least: int) -> list:
+    """``count`` participant ids drawn from ``rng``, redrawn until every
+    sub-cohort of ``aggregation`` holds at least ``at_least`` of them, so
+    every promoter's mask fold reaches the device threshold."""
+    import uuid
+
+    while True:
+        ids = [agent_id_cls(str(uuid.UUID(int=int(rng.integers(0, 1 << 62)) << 64
+                                          | int(rng.integers(0, 1 << 62)), version=4)))
+               for _ in range(count)]
+        sizes = {}
+        for agent_id in ids:
+            leaf = tiers_mod.leaf_aggregation_id(aggregation, agent_id)
+            sizes[leaf] = sizes.get(leaf, 0) + 1
+        if len(sizes) == aggregation.sub_cohort_size and min(sizes.values()) >= at_least:
+            return ids
+
+
+def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+    """Phase 18: the tiered round over two sharded, replicated frontends.
+    Participants route to their leaves by hashing; ``run_tier_round``
+    closes the leaves (each promoter folds its sub-cohort's masks on K2 and
+    submits the correction row), the leaf clerks re-share their columns to
+    the root, the root's committee clerks, the recipient reveals (its fold
+    on K2). After the participations one shard's down marker is touched;
+    it is removed just before the root's reveal, which waits for both
+    frontends' hint queues to drain. Held to: the reveal against numpy's sum
+    mod p, one reconstruction in the whole round (the root's), K2 launched
+    once per fold of at least 2^22 seed x dim elements and bit-identical to
+    its plain version at each fold's shape, writes hinted while the shard
+    was down and none left after the heal, and the servers' summed
+    ``sda_http_requests_total`` equal to the requests the clients
+    completed. Returns ``(k2 launches, k2 max_abs_err)``."""
+    import tempfile
+    import urllib.request
+    import uuid
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import telemetry
+    from sda_tpu_torch.client import SdaClient, run_tier_round, setup_tier_round
+    from sda_tpu_torch.crypto import Keystore, masking, sharing
+    from sda_tpu_torch.crypto.masking import ChaChaMasker
+    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.protocol import (
+        Agent,
+        Aggregation,
+        AgentId,
+        AggregationId,
+        ChaChaMasking,
+        SodiumEncryptionScheme,
+    )
+    from sda_tpu_torch.protocol import tiers as tiers_mod
+    from sda_tpu_torch.rest import SdaHttpClient, TokenStore, wire
+    from sda_tpu_torch.server.sharded import ShardRouter
+
+    rng = np.random.default_rng(seed + 18)
+    scheme, values = _sealed_updates(dev, rng)
+    p, dim = scheme.prime_modulus, len(values[0])
+    want = np.stack(values).sum(axis=0) % p
+    threshold = ChaChaMasker.DEVICE_COMBINE_THRESHOLD
+    at_least = -(-threshold // dim)  # rows whose fold reaches the device threshold
+    traffic = {"requests": 0, "bytes_up": 0, "bytes_down": 0}
+    real_exchange = SdaHttpClient._exchange
+
+    def counted(self, root, method, target, body, headers):
+        resp = real_exchange(self, root, method, target, body, headers)
+        traffic["requests"] += 1
+        traffic["bytes_up"] += len(body or b"")
+        traffic["bytes_down"] += len(resp.content)
+        return resp
+
+    folds = []
+    real_combine = masking.combine_masks_device
+
+    def timed_combine(seeds, *args, **kwargs):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        out = real_combine(seeds, *args, **kwargs)
+        events[1].record()
+        folds.append((events, np.asarray(seeds)))
+        return out
+
+    reconstructions = []
+    real_reconstruct = sharing.PackedShamirReconstructor.reconstruct
+
+    def counted_reconstruct(self, indexed_shares):
+        reconstructions.append(len(indexed_shares))
+        return real_reconstruct(self, indexed_shares)
+
+    def metrics(url):
+        with urllib.request.urlopen(url + "/v1/metrics", timeout=60) as resp:
+            return resp.read().decode("utf-8")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "store"
+        procs, urls = [], []
+        try:
+            for ix in range(TIER_FRONTENDS):
+                proc, url = _start_sdad(["--sqlite", str(root), "--shards", str(TIER_SHARDS),
+                                         "--replicas", str(TIER_REPLICAS)], tmp / f"sdad{ix}.log",
+                                        env={"SDA_SHARD_HANDOFF_S": str(TIER_HANDOFF_S),
+                                             "SDA_SHARD_HANDOFF_ATTEMPTS": str(TIER_HANDOFF_ATTEMPTS)})
+                procs.append(proc)
+                urls.append(url)
+        except BaseException:
+            for proc in procs:
+                _stop(proc)
+            raise
+        polls = 0
+        marker = None
+        seconds = {}
+        failed = True
+        try:
+            def client(name, agent_id=None):
+                keystore = Keystore(tmp / "members" / name)
+                agent = SdaClient.new_agent(keystore)
+                if agent_id is not None:
+                    agent = Agent(id=agent_id, verification_key=agent.verification_key)
+                service = SdaHttpClient(list(urls), TokenStore(tmp / "members" / name))
+                return SdaClient(agent, keystore, service, device=dev)
+
+            def keyed(name):
+                member = client(name)
+                member.upload_agent()
+                member.upload_encryption_key(member.new_encryption_key())
+                return member
+
+            torch.cuda.synchronize()
+            chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
+            telemetry.reset()
+            SdaHttpClient._exchange = counted
+            masking.combine_masks_device = timed_combine
+            sharing.PackedShamirReconstructor.reconstruct = counted_reconstruct
+            t_wall = time.perf_counter()
+            t0 = time.perf_counter()
+            recipient = client("recipient")
+            recipient.upload_agent()
+            recipient_key = recipient.new_encryption_key()
+            recipient.upload_encryption_key(recipient_key)
+            clerks = [keyed(f"clerk{i}") for i in range(SEALED_CLERKS)]
+            aggregation = Aggregation(
+                id=AggregationId(str(uuid.UUID(int=int(rng.integers(0, 1 << 62)), version=4))),
+                title="tier round", vector_dimension=dim, modulus=p,
+                recipient=recipient.agent.id, recipient_key=recipient_key,
+                masking_scheme=ChaChaMasking(modulus=p, dimension=dim, seed_bitsize=32 * SEED_WORDS),
+                committee_sharing_scheme=scheme,
+                recipient_encryption_scheme=SodiumEncryptionScheme(),
+                committee_encryption_scheme=SodiumEncryptionScheme(),
+                sub_cohort_size=TIER_SUB_COHORTS, tiers=2)
+            tround = setup_tier_round(recipient, aggregation, client, clerks,
+                                      frontends=TIER_FRONTENDS)
+            ids = _tier_agent_ids(rng, aggregation, tiers_mod, AgentId, SEALED_COHORT, at_least)
+            participants = [client(f"participant{i}", agent_id) for i, agent_id in enumerate(ids)]
+            for participant in participants:
+                participant.upload_agent()
+            seconds["setup_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for participant, v in zip(participants, values):
+                participant.participate(v, aggregation.id)
+            seconds["participate_s"] = time.perf_counter() - t0
+
+            # the mid-round fault: one shard down for every frontend, from
+            # the close of the leaves to the root's reveal
+            down = ShardRouter(TIER_SHARDS, replicas=TIER_REPLICAS).targets(aggregation.id)[0]
+            marker = Path(ShardRouter.down_marker(str(root), down))
+            marker.touch()
+            hinted = {}
+            real_reveal = recipient.reveal_aggregation
+
+            def healed_reveal(aggregation_id):
+                nonlocal polls
+                texts = [metrics(url) for url in urls]
+                polls += len(urls)
+                hinted["while_down"] = sum(
+                    _prometheus_sum(t, "sda_shard_replica_writes_total", outcome="hinted")
+                    for t in texts)
+                marker.unlink()
+                deadline = time.monotonic() + TIER_DRAIN_S
+                t_heal = time.perf_counter()
+                while True:
+                    texts = [metrics(url) for url in urls]
+                    polls += len(urls)
+                    depth = sum(_prometheus_sum(t, "sda_shard_handoff_queue") for t in texts)
+                    if depth == 0 or time.monotonic() > deadline:
+                        break
+                    time.sleep(TIER_HANDOFF_S)
+                seconds["drain_s"] = time.perf_counter() - t_heal
+                hinted["depth_after_heal"] = depth
+                return real_reveal(aggregation_id)
+
+            recipient.reveal_aggregation = healed_reveal
+            result = run_tier_round(tround)
+            seconds["wall_s"] = time.perf_counter() - t_wall
+            failed = False
+        finally:
+            SdaHttpClient._exchange = real_exchange
+            masking.combine_masks_device = real_combine
+            sharing.PackedShamirReconstructor.reconstruct = real_reconstruct
+            if marker is not None and marker.exists():
+                marker.unlink()
+            try:
+                texts = [metrics(url) for url in urls]
+            finally:
+                for proc in procs:
+                    _stop(proc)
+                # the frontends' own account of any hint they gave up on
+                abandoned_log = [line.split("sda.shard ", 1)[-1][:300]
+                                 for ix in range(TIER_FRONTENDS)
+                                 for line in (tmp / f"sdad{ix}.log").read_text().splitlines()
+                                 if "abandoned after" in line]
+                if failed:
+                    _line("tier round failed", seconds=seconds, abandoned_log=abandoned_log,
+                          card=card)
+        launches, recoveries = chacha_cuda.launches, chacha_cuda.slack_recoveries
+        torch.cuda.synchronize()
+        layout = sorted(path.name for path in root.glob("shard-*.db"))
+
+    spans = {name: sum(s["duration_s"] for s in telemetry.spans(name=name))
+             for name in ("tier.close", "tier.promote", "tier.root_close", "tier.root_reveal")}
+    reshare = [h for h in telemetry.snapshot(include_spans=0)["histograms"]
+               if h["name"] == "sda_tier_reshare_seconds"]
+    fold_rows = [int(seeds.shape[0]) for _, seeds in folds]
+    leaf_sizes = sorted(sum(1 for i in ids if tiers_mod.leaf_aggregation_id(aggregation, i) == tn.aggregation.id)
+                        for tn in tround.leaves())
+    root_rows = TIER_SUB_COHORTS * (scheme.share_count + 1)
+    implied = sum(1 for rows in leaf_sizes + [root_rows] if rows * dim >= threshold)
+    served = sum(_prometheus_sum(t, "sda_http_requests_total") for t in texts)
+    drained = sum(_prometheus_sum(t, "sda_shard_replica_writes_total", outcome="handoff")
+                  for t in texts)
+    abandoned = sum(_prometheus_sum(t, "sda_shard_replica_writes_total", outcome="abandoned")
+                    for t in texts)
+    exact = bool(np.array_equal(result.output.positive().values, want))
+    checks = {
+        "sum": exact,
+        "nothing_skipped": result.skipped == [],
+        "one_reconstruction": len(reconstructions) == 1,
+        "k2_per_fold": launches - recoveries == implied == len(folds),
+        "hinted_while_down": hinted.get("while_down", 0) > 0,
+        "hints_drained": hinted.get("depth_after_heal") == 0,
+        "no_hint_dropped": abandoned == 0,
+        "metrics_count_requests": served == traffic["requests"] + polls,
+        "shard_layout": layout == [f"shard-{ix:02d}.db" for ix in range(TIER_SHARDS)],
+    }
+    _line("tier round", participants=SEALED_COHORT, clerks=SEALED_CLERKS, dim=dim, modulus=p,
+          scheme={"k": scheme.secret_count, "t": scheme.privacy_threshold, "n": scheme.share_count},
+          tiers=2, sub_cohorts=TIER_SUB_COHORTS, leaf_sizes=leaf_sizes, frontends=TIER_FRONTENDS,
+          shards=TIER_SHARDS, replicas=TIER_REPLICAS, down_shard=down,
+          setup_s=seconds["setup_s"], participate_s=seconds["participate_s"],
+          promote_s=spans["tier.close"], leaf_clerking_s=spans["tier.promote"],
+          reshare_s=sum(h["sum"] for h in reshare), reshares=sum(h["count"] for h in reshare),
+          root_clerking_s=spans["tier.root_close"],
+          reveal_s=spans["tier.root_reveal"] - seconds["drain_s"], drain_s=seconds["drain_s"],
+          mask_combine_s=[a.elapsed_time(b) / 1e3 for (a, b), _ in folds], fold_rows=fold_rows,
+          wall_s=seconds["wall_s"], **traffic, served_requests=served, metrics_polls=polls,
+          wire=wire.mode(), hints_hinted=hinted.get("while_down"), hints_drained=drained,
+          hints_abandoned=abandoned, abandoned_log=abandoned_log,
+          handoff_s=TIER_HANDOFF_S, handoff_attempts=TIER_HANDOFF_ATTEMPTS,
+          reconstructions=len(reconstructions), k2_launches=launches, implied_folds=implied,
+          slack_recoveries=recoveries, exact=exact, checks=checks, card=card)
+    if not all(checks.values()):
+        raise AssertionError(f"tier round: a check failed: {checks}")
+    k2_err = 0
+    for ix, fold in enumerate(folds):
+        k2_err = max(k2_err, _k2_at_fold(card, dev, [fold], dim, p, sm_clocks_per_ms, launches,
+                                         f"tier round fold {ix}"))
     return launches, k2_err
 
 
@@ -2728,6 +3044,8 @@ def main(argv=None) -> int:
     analytics_phase(card, dev, args.seed)
     # -- 17. the REST deployment: phase 14's round over loopback HTTP, the CLIs ---
     rest_k2, rest_k2_err = rest_round_phase(card, dev, args.seed, sm_clocks_per_ms)
+    # -- 18. the scale-out plane: a tiered round over two sharded frontends --------
+    tier_k2, tier_k2_err = tier_round_phase(card, dev, args.seed, sm_clocks_per_ms)
 
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",
@@ -2749,9 +3067,9 @@ def main(argv=None) -> int:
         "source": "sda_tpu_torch/csrc/chacha20.cu",
         "replaces": "sda_tpu/ops/chacha_pallas.py:47",
         "launches": (masked_launches["chacha20"] + fabric_launches["chacha20"] + fedavg_k2 + model_k2
-                     + sealed_k2 + trainer_k2 + rest_k2),
+                     + sealed_k2 + trainer_k2 + rest_k2 + tier_k2),
         "max_abs_err": max(k2_err, fabric_k2_err, fedavg_k2_err, model_k2_err, sealed_k2_err,
-                           trainer_k2_err, rest_k2_err),
+                           trainer_k2_err, rest_k2_err, tier_k2_err),
         "ms": kernel2_ms,
         "plain_ms": plain2_ms,
         "bound_ms": max(bytes2_ms, ops2_ms),

@@ -4,9 +4,11 @@
 Parity with the SDA server's sdad.rs: pick a storage backend (``--file
 root`` durable, ``--sqlite db``, ``--mem`` in-memory; the SDA server's
 equivalents are ``--jfs``/``--mongo``), then ``httpd -b ip:port`` (default
-127.0.0.1:8888). ``--shards K`` with K > 1 needs the sharded store, which
-the port does not have yet: it exits with status 2 naming the ROADMAP
-item.
+127.0.0.1:8888). ``--shards K`` partitions aggregation state over K store
+shards (``shard-NN`` directories or ``shard-NN.db`` files under the given
+path, ``sda_tpu``'s layout) and ``--replicas R`` replicates each
+aggregation over R of them; several ``sdad`` processes over one root are
+frontends of one deployment.
 
 ``committee`` runs several clerk identities concurrently against a
 remote server (``client.run_committee``): one worker thread per clerk,
@@ -23,16 +25,9 @@ import logging
 import sys
 import time
 
-from ..server import new_file_server, new_mem_server, new_sqlite_server
+from ..server import new_file_server, new_mem_server, new_sharded_server, new_sqlite_server
 
 log = logging.getLogger("sda.sdad")
-
-#: what ``--shards K`` with K > 1 answers: the sharded store's ROADMAP item
-SHARDS_NOT_PORTED = (
-    "sdad: --shards > 1 needs the sharded store, which is not ported "
-    "(ROADMAP queue A: the sharded store)"
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="sdad", description="SDA server daemon")
@@ -46,16 +41,18 @@ def build_parser() -> argparse.ArgumentParser:
         type=int,
         default=1,
         metavar="K",
-        help="partition aggregation state over K store shards; K > 1 needs "
-        "the sharded store, which is not ported (exits with status 2)",
+        help="partition aggregation state over K store shards "
+        "(file/sqlite paths become per-shard roots under the given path)",
     )
     parser.add_argument(
         "--replicas",
         type=int,
         default=None,
         metavar="R",
-        help="replicate each aggregation's state over R shards; as in "
-        "sda_tpu, it only acts with --shards > 1",
+        help="replicate each aggregation's state over the first R shards "
+        "of its ring preference (quorum writes + hinted handoff; default "
+        "SDA_SHARD_REPLICAS or 1 — single-home routing). R>1 lets any "
+        "one store shard die mid-round without losing the round.",
     )
     sub = parser.add_subparsers(dest="command", required=True)
     httpd = sub.add_parser("httpd", help="run the REST server")
@@ -163,10 +160,25 @@ def main(argv=None) -> int:
     if args.command == "committee":
         return run_committee_daemon(args)
 
-    if max(int(args.shards or 1), 1) > 1:
-        print(SHARDS_NOT_PORTED, file=sys.stderr)
-        return 2
-    if args.file:
+    shards = max(int(args.shards or 1), 1)
+    replicas = args.replicas if args.replicas is None else max(int(args.replicas), 1)
+    if shards > 1:
+        if args.file:
+            service = new_sharded_server("file", shards, args.file, replicas=replicas)
+            log.info("using file store at %s over %d shards", args.file, shards)
+        elif args.sqlite:
+            service = new_sharded_server("sqlite", shards, args.sqlite, replicas=replicas)
+            log.info("using sqlite store at %s over %d shards", args.sqlite, shards)
+        else:
+            service = new_sharded_server("mem", shards, replicas=replicas)
+            log.info("using in-memory store over %d shards", shards)
+        log.info(
+            "replication factor %d (quorum writes + hinted handoff)"
+            if service.shard_router.replicas > 1
+            else "replication factor %d (single-home routing)",
+            service.shard_router.replicas,
+        )
+    elif args.file:
         service = new_file_server(args.file)
         log.info("using file store at %s", args.file)
     elif args.sqlite:

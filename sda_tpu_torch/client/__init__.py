@@ -4,8 +4,8 @@
 ``SdaClient`` works against any ``SdaService`` with a keystore-backed
 ``CryptoModule``, as the SDA client crate's lib.rs:39-56 does. ``device`` is
 where the recipient's large ChaCha mask combine runs (CUDA unless the caller
-asks for the CPU). Ingest, tiers, reshare and the prefetch thread are not
-ported.
+asks for the CPU). ``tiers`` provisions and runs a tiered round (share or
+reveal promotion). Ingest and the prefetch thread are not ported.
 """
 
 from __future__ import annotations
@@ -17,6 +17,16 @@ from .committee import run_committee
 from .participate import Participating
 from .profile import Maintenance
 from .receive import Receiving, RecipientOutput
+from .tiers import (
+    TierRound,
+    TierRoundNode,
+    TierRoundResult,
+    promote_mask_correction,
+    promote_partial,
+    run_tier_round,
+    setup_tier_round,
+    tier_fanout,
+)
 
 
 class SdaClient(Participating, Clerking, Receiving, Maintenance):
@@ -43,4 +53,12 @@ __all__ = [
     "Maintenance",
     "RecipientOutput",
     "run_committee",
+    "TierRound",
+    "TierRoundNode",
+    "TierRoundResult",
+    "setup_tier_round",
+    "run_tier_round",
+    "promote_partial",
+    "promote_mask_correction",
+    "tier_fanout",
 ]

@@ -1,5 +1,5 @@
 """Clerk role: poll queue, decrypt, combine, re-encrypt to recipient
-(counterpart of ``sda_tpu/client/clerk.py``, flat aggregations only).
+(counterpart of ``sda_tpu/client/clerk.py``).
 
 The SDA client's clerk.rs. The hot loop — decrypt every participant's share
 vector and sum mod m — runs as stacked numpy reductions over fixed-size
@@ -12,7 +12,13 @@ Large jobs arrive PAGED: the server returns metadata only
 ciphertext column range by range via ``get_clerking_job_chunk``, one range
 after the other: the reference's prefetch thread, which overlaps the next
 range's download with the current one's decrypt, is not ported (its folds
-are byte-identical either way). Tier share promotion is not ported.
+are byte-identical either way).
+
+On a derived tier child under share promotion the combined column is not
+sealed to the recipient: the clerk expands it by its Lagrange
+coefficients and submits it to the parent aggregation as a tagged
+participation (``_promote_share_column``), keeping the column cached for
+an epoch-1 reissue after a peer's death (``reshare_tier_child``).
 """
 
 from __future__ import annotations
@@ -20,14 +26,19 @@ from __future__ import annotations
 import time
 
 from .. import telemetry
-from ..protocol import ClerkingResult, SdaError
-from ..protocol.resources import TIERS_NOT_PORTED
+from ..ops.shamir import reshare_coefficients, reshare_column
+from ..protocol import ClerkingResult, SdaError, ServerError, TierReshare
+from ..protocol import tiers as tiers_mod
 from ..utils.metrics import get_metrics
 from .keys import VerifiedKeys
 
 #: pipeline stage latency — one histogram per stage
 _STAGE_SERIES = "sda_clerk_stage_seconds"
 _STAGE_HELP = "clerk job pipeline stage latency by stage"
+#: share-promotion latency (expand the aggregated column by its Lagrange
+#: coefficients + build and submit the tagged parent participation)
+_RESHARE_SERIES = "sda_tier_reshare_seconds"
+_RESHARE_HELP = "clerk share-promotion latency (column expand + submit)"
 
 
 def iter_ranges(fetch, total: int):
@@ -48,12 +59,31 @@ class Clerking(VerifiedKeys):
     DECRYPT_CHUNK = 4096
 
     def clerk_once(self) -> bool:
-        """Process the next pending job, if any; returns whether one ran."""
+        """Process the next pending job, if any; returns whether one ran.
+
+        On a derived tier child in share-promotion mode
+        (``protocol.tiers.is_reshare_child``) the aggregated column is NOT
+        sealed into a clerking result — the child never reveals. Instead
+        the clerk immediately re-shares the column to the child's parent
+        as a tagged ordinary participation (epoch 0 = full committee); the
+        column stays cached so a survivor reissue (epoch 1) can follow a
+        peer's death without reprocessing the job."""
         job = self.service.get_clerking_job(self.agent, self.agent.id)
         if job is None:
             return False
-        result = self.process_clerking_job(job)
-        self.service.create_clerking_result(self.agent, result)
+        aggregation, committee, combined = self._combine_job(job)
+        if tiers_mod.is_reshare_child(aggregation):
+            n = aggregation.committee_sharing_scheme.output_size
+            self._promote_share_column(
+                aggregation, committee, combined, survivors=list(range(n)), epoch=0
+            )
+            # retire the job only AFTER the promotion landed: a crash in
+            # between redelivers the job, recomputes the identical column,
+            # and the deterministic participation id collides idempotently
+            self.service.complete_clerking_job(self.agent, job.id)
+        else:
+            result = self._seal_result(job, aggregation, combined)
+            self.service.create_clerking_result(self.agent, result)
         return True
 
     def run_chores(self, max_iterations: int) -> int:
@@ -102,12 +132,18 @@ class Clerking(VerifiedKeys):
 
     def process_clerking_job(self, job) -> ClerkingResult:
         """Decrypt + combine the job's column and seal it to the
-        recipient."""
+        recipient — the flat pipeline. Tier-child share promotion routes
+        through ``clerk_once`` instead (the combined column must not be
+        sealed into a local clerking result there)."""
+        aggregation, _, combined = self._combine_job(job)
+        return self._seal_result(job, aggregation, combined)
+
+    def _combine_job(self, job):
+        """(aggregation, committee, combined column) for ``job`` — the
+        decrypt + chunked modular fold shared by both promotion paths."""
         aggregation = self.service.get_aggregation(self.agent, job.aggregation)
         if aggregation is None:
             raise ValueError("Unknown aggregation")
-        if aggregation.is_tiered() or aggregation.tier_parent is not None:
-            raise NotImplementedError(TIERS_NOT_PORTED)
         committee = self.service.get_committee(self.agent, job.aggregation)
         if committee is None:
             raise ValueError("Unknown committee")
@@ -152,7 +188,9 @@ class Clerking(VerifiedKeys):
             combine_hist.observe(time.perf_counter() - t0)
         if combined is None:  # empty snapshot cut
             combined = combiner.combine([])
+        return aggregation, committee, combined
 
+    def _seal_result(self, job, aggregation, combined) -> ClerkingResult:
         # fetch + verify recipient key (cached across jobs — keys.py
         # VerifiedKeys), re-encrypt the combined vector
         recipient_key = self._fetch_verified_key(
@@ -163,4 +201,105 @@ class Clerking(VerifiedKeys):
         )
         return ClerkingResult(
             job=job.id, clerk=job.clerk, encryption=encryptor.encrypt(combined)
+        )
+
+    # -- share promotion (hierarchical plane) -------------------------------
+
+    def _tier_column_cache(self) -> dict:
+        """{child aggregation id: (position, combined column)} — lazily
+        created; VerifiedKeys subclasses don't all share one __init__."""
+        cache = getattr(self, "_tier_columns", None)
+        if cache is None:
+            cache = {}
+            self._tier_columns = cache
+        return cache
+
+    def _promote_share_column(
+        self, aggregation, committee, combined, *, survivors, epoch: int
+    ) -> None:
+        """Re-share our aggregated column toward ``aggregation``'s parent.
+
+        The column (length B = batches of the sharing scheme) is expanded
+        by this clerk's Lagrange coefficients over ``survivors`` into a
+        dim-length vector (ops/shamir.py reshare_column) and submitted as
+        an ORDINARY participation of the parent — freshly masked, shared,
+        and sealed by the Participating half of this client — carrying a
+        TierReshare tag and a deterministic id, so retries and re-drains
+        land idempotently. The sub-cohort's own masks are cancelled by the
+        child owner's separate mask-correction row (client/tiers.py);
+        nothing on this path ever reconstructs the partial."""
+        position = next(
+            (
+                ix
+                for ix, (clerk, _) in enumerate(committee.clerks_and_keys)
+                if clerk == self.agent.id
+            ),
+            None,
+        )
+        if position is None:
+            raise SdaError("clerk is not a member of the child committee")
+        if position not in survivors:
+            raise SdaError(
+                f"clerk position {position} is not in the survivor set"
+            )
+        t0 = time.perf_counter()
+        with telemetry.span("clerk.reshare", epoch=epoch):
+            self._tier_column_cache()[aggregation.id] = (position, combined)
+            coefficients = reshare_coefficients(
+                aggregation.committee_sharing_scheme, survivors, position
+            )
+            values = reshare_column(
+                combined,
+                coefficients,
+                aggregation.modulus,
+                aggregation.vector_dimension,
+            )
+            tag = TierReshare(
+                child=aggregation.id,
+                epoch=epoch,
+                position=position,
+                survivors=sorted(survivors),
+            )
+            pid = tiers_mod.reshare_participation_id(aggregation.id, epoch, position)
+            rows = self.new_participations(
+                [values],
+                aggregation.tier_parent,
+                route=False,
+                ids=[pid],
+                tier_reshare=tag,
+            )
+            try:
+                self.upload_participations(rows)
+            except ServerError as e:
+                # deterministic id: an identical earlier attempt already
+                # landed — exactly the idempotence the id exists for
+                if "already exists" not in str(e):
+                    raise
+        telemetry.histogram(_RESHARE_SERIES, _RESHARE_HELP, stage="column").observe(
+            time.perf_counter() - t0
+        )
+
+    def reshare_tier_child(self, child_aggregation, survivors, epoch: int) -> None:
+        """Reissue our promotion for ``child_aggregation`` over a reduced
+        ``survivors`` set (a peer died after end-of-aggregation): the
+        cached column from the original job is expanded with the fresh
+        Lagrange weights and submitted under the new epoch. Raises if this
+        clerk never processed the child's job (its column is gone — the
+        caller must treat this clerk as dead too)."""
+        cached = self._tier_column_cache().get(child_aggregation.id)
+        if cached is None:
+            raise SdaError(
+                f"no cached share column for {child_aggregation.id}; "
+                "this clerk cannot re-share"
+            )
+        position, combined = cached
+        committee = self.service.get_committee(self.agent, child_aggregation.id)
+        if committee is None:
+            raise ValueError("Unknown committee")
+        self._promote_share_column(
+            child_aggregation,
+            committee,
+            combined,
+            survivors=list(survivors),
+            epoch=epoch,
         )

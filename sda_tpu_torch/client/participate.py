@@ -9,9 +9,10 @@ signature-verify the encryption key and seal that clerk's share vector.
 under the client-chosen ParticipationId. ``new_participations`` builds a
 batch against one fetch of the aggregation, committee and verified keys,
 and ``upload_participations`` submits it through the service's atomic bulk
-``create_participations``. The reference's pipelined ``participate_many``
-(a worker thread uploading chunk k while chunk k+1 is sealed) and its tier
-routing are not ported.
+``create_participations``. On a tiered root a participant's rows go to its
+leaf sub-aggregation, resolved by pure hashing (``protocol/tiers.py``).
+The reference's pipelined ``participate_many`` (a worker thread uploading
+chunk k while chunk k+1 is sealed) is not ported.
 """
 
 from __future__ import annotations
@@ -19,13 +20,13 @@ from __future__ import annotations
 import numpy as np
 
 from ..protocol import Participation, ParticipationId
-from ..protocol.resources import TIERS_NOT_PORTED
+from ..protocol import tiers as tiers_mod
 from .keys import VerifiedKeys
 
 
 class Participating(VerifiedKeys):
-    def participate(self, values, aggregation_id) -> None:
-        participation = self.new_participation(values, aggregation_id)
+    def participate(self, values, aggregation_id, *, route: bool = True) -> None:
+        participation = self.new_participation(values, aggregation_id, route=route)
         self.upload_participation(participation)
 
     def upload_participation(self, participation) -> None:
@@ -34,16 +35,37 @@ class Participating(VerifiedKeys):
     def upload_participations(self, participations) -> None:
         self.service.create_participations(self.agent, list(participations))
 
-    def new_participation(self, values, aggregation_id) -> Participation:
-        return self.new_participations([values], aggregation_id)[0]
+    def new_participation(self, values, aggregation_id, *, route: bool = True) -> Participation:
+        return self.new_participations([values], aggregation_id, route=route)[0]
 
-    def new_participations(self, values_list, aggregation_id) -> list:
+    def new_participations(
+        self, values_list, aggregation_id, *, route: bool = True, ids=None, tier_reshare=None
+    ) -> list:
+        """``ids`` pins client-chosen participation ids (share-promotion
+        rows use deterministic uuid5 ids so re-drains collide idempotently
+        instead of double-counting); ``tier_reshare`` tags every built row
+        as a tier promotion (``protocol.resources.TierReshare``). Both
+        default off, leaving ordinary participations byte-unchanged.
+        ``route=False`` sends rows to a tiered node itself instead of the
+        participant's leaf: only tier promoters do that
+        (``client/tiers.py``)."""
         secrets_rows = [np.asarray(v, dtype=np.int64) for v in values_list]
+        if ids is not None and len(ids) != len(secrets_rows):
+            raise ValueError("ids must match values_list one to one")
         aggregation = self.service.get_aggregation(self.agent, aggregation_id)
         if aggregation is None:
             raise ValueError("Could not find aggregation")
-        if aggregation.is_tiered():
-            raise NotImplementedError(TIERS_NOT_PORTED)
+        if route and aggregation.is_tiered():
+            # hierarchical root: real participations belong to this
+            # participant's LEAF sub-aggregation, derived by pure hashing
+            # from the root record — no extra server round-trips
+            leaf_id = tiers_mod.leaf_aggregation_id(aggregation, self.agent.id)
+            aggregation = self.service.get_aggregation(self.agent, leaf_id)
+            if aggregation is None:
+                raise ValueError(
+                    "tiered aggregation's sub-committees are not provisioned yet "
+                    "(run setup_tier_round first)"
+                )
         for secrets in secrets_rows:
             if len(secrets) != aggregation.vector_dimension:
                 raise ValueError("The input length does not match the aggregation.")
@@ -84,11 +106,12 @@ class Participating(VerifiedKeys):
 
         return [
             Participation(
-                id=ParticipationId.random(),
+                id=ids[i] if ids is not None else ParticipationId.random(),
                 participant=self.agent.id,
                 aggregation=aggregation.id,
                 recipient_encryption=recipient_encryptions[i],
                 clerk_encryptions=list(zip(clerk_ids, encryption_rows[i])),
+                tier_reshare=tier_reshare,
             )
             for i in range(len(secrets_rows))
         ]

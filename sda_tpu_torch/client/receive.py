@@ -16,7 +16,8 @@ recipient fetches the mask column and the clerk results range by range, one
 range after the other (the reference overlaps them with a prefetch thread,
 not ported; both give byte-identical folds). Small results go through the
 same accumulator as a single chunk. The tier promoter's
-``combined_snapshot_mask`` is not ported.
+``combined_snapshot_mask`` folds a snapshot's mask column alone through
+that accumulator, so a large sub-cohort's fold reaches the device too.
 """
 
 from __future__ import annotations
@@ -141,7 +142,9 @@ class Receiving:
 
     def end_aggregation(self, aggregation_id):
         """Freeze the aggregation behind one snapshot (idempotent).
-        Returns the snapshot's id."""
+        Returns the snapshot's id — callers that go on to read the cut
+        (tier promoters folding their mask column) can skip the status
+        round-trip they'd otherwise need to rediscover it."""
         status = self.service.get_aggregation_status(self.agent, aggregation_id)
         if status is None:
             raise ValueError("Unknown aggregation")
@@ -150,6 +153,75 @@ class Receiving:
         snapshot = Snapshot(id=SnapshotId.random(), aggregation=aggregation_id)
         self.service.create_snapshot(self.agent, snapshot)
         return snapshot.id
+
+    def combined_snapshot_mask(
+        self, aggregation_id, *, aggregation=None, snapshot_id=None
+    ) -> np.ndarray:
+        """Decrypt + fold the first snapshot's MASK column only, without
+        touching (or waiting for) any clerk results.
+
+        This is the tier promoter's whole job under share-promotion
+        (client/tiers.py): the child owner cancels its sub-cohort's mask
+        sum one tier up via a correction row, and the mask sum is the ONLY
+        thing it ever decrypts — data-independent by the masking schemes'
+        construction, so no promotion path reconstructs a partial. Works
+        as soon as the snapshot is cut (``get_snapshot_result`` serves
+        masks regardless of clerk readiness, and reshare children never
+        turn result_ready at all). Returns the canonical [0, m) fold; the
+        empty vector when the scheme stores no mask.
+
+        ``aggregation`` and ``snapshot_id`` let a caller that already
+        holds the record / just cut the snapshot (``end_aggregation``
+        returns its id) skip the rediscovery round-trips — the correction
+        sits on the tier round's per-node critical path."""
+        if aggregation is None:
+            aggregation = self.service.get_aggregation(self.agent, aggregation_id)
+        if aggregation is None:
+            raise ValueError(f"Unknown aggregation {aggregation_id}")
+        if snapshot_id is None:
+            status = self.service.get_aggregation_status(self.agent, aggregation_id)
+            if status is None:
+                raise ValueError("Unknown aggregation")
+            if not status.snapshots:
+                raise ValueError("Aggregation has no snapshot yet")
+            snapshot_id = status.snapshots[0].id
+        result = self.service.get_snapshot_result(self.agent, aggregation_id, snapshot_id)
+        if result is None:
+            raise ValueError("Missing aggregation result")
+
+        decryptor = self.crypto.new_share_decryptor(
+            aggregation.recipient_key, aggregation.recipient_encryption_scheme
+        )
+        if result.is_paged():
+            def fetch_masks(start):
+                return self.service.get_snapshot_result_masks(
+                    self.agent, aggregation_id, snapshot_id, start
+                )
+
+            mask_chunks = (
+                None
+                if result.mask_encryption_count is None
+                else _iter_result_chunks(
+                    fetch_masks, result.mask_encryption_count, "masks"
+                )
+            )
+        else:
+            mask_chunks = (
+                None
+                if result.recipient_encryptions is None
+                else iter([result.recipient_encryptions])
+            )
+        if mask_chunks is None:
+            return np.empty(0, dtype=np.int64)
+        accumulator = self.crypto.new_mask_combiner(
+            aggregation.masking_scheme
+        ).accumulator()
+        for block in mask_chunks:
+            with telemetry.span("reveal.decrypt", what="masks", rows=len(block)):
+                decrypted = decryptor.decrypt_batch(block)
+            with telemetry.span("reveal.fold", what="tier mask", rows=len(block)):
+                accumulator.fold(decrypted)
+        return accumulator.finish()
 
     def reveal_aggregation(self, aggregation_id) -> RecipientOutput:
         aggregation = self.service.get_aggregation(self.agent, aggregation_id)

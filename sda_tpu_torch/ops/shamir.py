@@ -1,8 +1,9 @@
 """Packed and basic Shamir sharing as precomputed mod-p linear maps.
 
 Copy of the parts of ``sda_tpu/ops/shamir.py`` the engine, the model plane
-(``verify_scheme`` checks ``QuantizationSpec.fitted``'s scheme) and the
-participants' host sharing (``share_batches``) use. One
+(``verify_scheme`` checks ``QuantizationSpec.fitted``'s scheme), the
+participants' host sharing (``share_batches``) and the tier tree's share
+promotion (``reshare_coefficients``/``reshare_column``) use. One
 degree-(t+k-1) polynomial hides k secrets: its values on the order-(k+t+1)
 secrets domain are ``[v_0, s_1..s_k, r_1..r_t]`` with v_0 chosen so the top
 coefficient vanishes; clerk i holds the evaluation at omega_shares^(i+1).
@@ -18,7 +19,7 @@ import math
 import numpy as np
 
 from .lagrange import lagrange_matrix
-from .modular import modmatmul_np
+from .modular import modmatmul_np, positive
 from .ntt import dft_matrix, inverse_dft_matrix
 
 
@@ -121,6 +122,40 @@ def reconstruct_clerk_sums_host(clerk_sums, indices, scheme, dim: int) -> np.nda
     rows = np.asarray(clerk_sums)[list(indices)]  # (R, B)
     secrets = reconstruct_batches(rows.T, L, scheme.prime_modulus)  # (B, k)
     return np.asarray(secrets).reshape(-1)[:dim]
+
+
+def reshare_coefficients(scheme, survivors, position) -> np.ndarray:
+    """(k,) Lagrange column for the surviving clerk at committee
+    ``position`` — the share-promotion weights of the tier tree.
+
+    ``reconstruction_matrix(scheme, survivors)`` maps the survivors' share
+    columns to the secrets; its column for ``position`` is the weight
+    vector this one clerk contributes. A clerk that scales its aggregated
+    share column by these coefficients (``reshare_column``) and submits
+    the result as an ordinary participation one tier up makes the parent's
+    sum over all survivors equal the reconstructed sub-cohort aggregate,
+    without any party ever holding more than its own single column.
+    """
+    survivors = list(survivors)
+    L = reconstruction_matrix(scheme, survivors)  # (k, R)
+    return L[:, survivors.index(position)].copy()
+
+
+def reshare_column(column, coefficients, p: int, dim: int) -> np.ndarray:
+    """Expand a clerk's (B,) aggregated share column into the (dim,)
+    parent-tier contribution: outer(column, coefficients) flattened
+    batch-major and pad-truncated — the flatten ``reconstruct_batches``
+    applies, so summing all survivors' expansions mod p IS the
+    reconstruction, term-reordered. Exact at any modulus width: the
+    products go through ``modmatmul_np``, which takes Python-int products
+    where int64 would overflow. Empty columns (no participations in the
+    sub-cohort) expand to zeros."""
+    col = np.asarray(column, dtype=np.int64).reshape(-1, 1)  # (B, 1)
+    if col.size == 0:
+        return np.zeros(dim, dtype=np.int64)
+    coef = np.asarray(coefficients, dtype=np.int64).reshape(1, -1)  # (1, k)
+    out = modmatmul_np(col, coef, p)  # (B, k)
+    return np.asarray(positive(np.asarray(out).reshape(-1)[:dim], p), dtype=np.int64)
 
 
 def _mod_rank(M: np.ndarray, p: int) -> int:

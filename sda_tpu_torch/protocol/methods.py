@@ -7,17 +7,13 @@ protocol logic and tests are written once against it (the SDA design's key
 architectural property, SURVEY.md §1).
 
 Every method takes ``caller`` for access control; ``get_*`` methods return
-``None`` for missing resources. The tier routes of ``sda_tpu``'s interface
-(``complete_clerking_job``, ``get_tier_status``) answer with the refusal
-``TIERS_NOT_PORTED``: the port has no tiered aggregation.
+``None`` for missing resources.
 """
 
 from __future__ import annotations
 
 import abc
 from typing import Optional
-
-from .resources import TIERS_NOT_PORTED
 
 
 class SdaService(abc.ABC):
@@ -115,9 +111,16 @@ class SdaService(abc.ABC):
         """Push the result of a finished clerking job."""
 
     def complete_clerking_job(self, caller, job_id) -> None:
-        """Retire a job without filing a result: the terminal of the
-        reference's tier share-promotion, which the port does not have."""
-        raise NotImplementedError(TIERS_NOT_PORTED)
+        """Retire a clerking job the caller owns WITHOUT filing a result —
+        the terminal of tier share-promotion (client/clerk.py), where the
+        clerk's output left as tagged participations of the parent and no
+        recipient-sealed result may exist. Idempotent on replay. Default
+        shim raises so ``SdaService`` bindings predating share promotion
+        keep importing; reaching it means a binding/version mismatch."""
+        raise NotImplementedError(
+            "this SdaService binding does not support completing a job "
+            "without a clerking result"
+        )
 
     # -- recipient (methods.rs:87-112) ----------------------------------------
 
@@ -141,6 +144,18 @@ class SdaService(abc.ABC):
     def get_aggregation_status(self, caller, aggregation_id):
         """Poll aggregation status (participations, snapshots, readiness)."""
 
+    def get_tier_status(self, caller, aggregation_id):
+        """Per-node readiness of a TIERED aggregation's derived tree
+        (``TierStatus``, nodes in breadth-first order, root first), or
+        None for a flat or unknown aggregation. Recipient-only, like
+        ``get_aggregation_status``. Compatibility shim rationale as the
+        paged-delivery defaults: a binding predating tiered aggregation
+        never creates one, so reaching this default means a
+        binding/version mismatch."""
+        raise NotImplementedError(
+            "this SdaService binding does not support tiered aggregations"
+        )
+
     @abc.abstractmethod
     def create_snapshot(self, caller, snapshot) -> None:
         """Freeze a consistent subset of participations and build clerk jobs."""
@@ -154,11 +169,6 @@ class SdaService(abc.ABC):
         ``mask_encryption_count``/``clerk_result_count``/``chunk_size``
         set, both payloads fetched range-by-range via
         ``get_snapshot_result_masks`` / ``get_snapshot_result_clerks``."""
-
-    def get_tier_status(self, caller, aggregation_id):
-        """Per-node readiness of a tiered aggregation's derived tree in the
-        reference; the port has no tiered aggregation."""
-        raise NotImplementedError(TIERS_NOT_PORTED)
 
     def get_snapshot_result_masks(self, caller, aggregation_id, snapshot_id, start: int):
         """Fetch one recipient-mask-encryption range

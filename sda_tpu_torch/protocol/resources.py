@@ -1,6 +1,5 @@
 """Protocol resources — the REST objects of the SDA wire contract (copy of
-``sda_tpu/protocol/resources.py`` without the tier status records, which
-serve only tiered aggregations; the port refuses those).
+``sda_tpu/protocol/resources.py``).
 
 Field names and order mirror the SDA protocol's resources.rs, so the JSON
 wire format (and canonical signing bytes) match ``sda_tpu``'s byte for byte.
@@ -29,10 +28,6 @@ from .schemes import (
     LinearSecretSharingScheme,
     VerificationKey,
 )
-
-
-#: what a tiered aggregation or a share-promotion row raises in the port
-TIERS_NOT_PORTED = "tiered aggregations are not ported (ROADMAP queue D: tiers)"
 
 
 def _opt(value, f):
@@ -111,8 +106,7 @@ class Aggregation:
     exact total (``sda_tpu/protocol/tiers.py`` derives the whole tree
     from this one record). Both fields are emitted only when set, so FLAT
     aggregations — the default — keep the original ten-key wire shape and
-    canonical signing bytes, byte for byte. The port carries the fields for
-    the codec only: its server refuses tiered aggregations.
+    canonical signing bytes, byte for byte.
     """
 
     id: AggregationId
@@ -510,6 +504,74 @@ class SnapshotResult:
             mask_encryption_count=_opt(obj.get("mask_encryption_count"), int),
             clerk_result_count=_opt(obj.get("clerk_result_count"), int),
             chunk_size=_opt(obj.get("chunk_size"), int),
+        )
+
+
+@dataclass
+class TierNodeStatus:
+    """Status of one node of a tiered aggregation's derived tree.
+
+    ``exists`` is False for a node whose sub-aggregation record was never
+    provisioned (the topology is derived, not stored — see
+    protocol/tiers.py); counts are zero for such nodes. ``result_ready``
+    means at least one of the node's snapshots has collected enough clerk
+    results to reconstruct."""
+
+    aggregation: AggregationId
+    tier: int
+    parent: Optional[AggregationId]
+    exists: bool
+    number_of_participations: int
+    result_ready: bool
+
+    def to_json(self):
+        return {
+            "aggregation": self.aggregation.to_json(),
+            "tier": self.tier,
+            "parent": _opt(self.parent, lambda p: p.to_json()),
+            "exists": self.exists,
+            "number_of_participations": self.number_of_participations,
+            "result_ready": self.result_ready,
+        }
+
+    @classmethod
+    def from_json(cls, obj):
+        return cls(
+            aggregation=AggregationId.from_json(obj["aggregation"]),
+            tier=int(obj["tier"]),
+            parent=_opt(obj.get("parent"), AggregationId.from_json),
+            exists=bool(obj["exists"]),
+            number_of_participations=int(obj["number_of_participations"]),
+            result_ready=bool(obj["result_ready"]),
+        )
+
+
+@dataclass
+class TierStatus:
+    """Per-node readiness of a tiered aggregation's whole derived tree,
+    root first in breadth-first order (additive resource, no reference
+    counterpart)."""
+
+    aggregation: AggregationId
+    tiers: int
+    sub_cohort_size: int
+    nodes: list  # list[TierNodeStatus], BFS order, root first
+
+    def to_json(self):
+        return {
+            "aggregation": self.aggregation.to_json(),
+            "tiers": self.tiers,
+            "sub_cohort_size": self.sub_cohort_size,
+            "nodes": [n.to_json() for n in self.nodes],
+        }
+
+    @classmethod
+    def from_json(cls, obj):
+        return cls(
+            aggregation=AggregationId.from_json(obj["aggregation"]),
+            tiers=int(obj["tiers"]),
+            sub_cohort_size=int(obj["sub_cohort_size"]),
+            nodes=[TierNodeStatus.from_json(n) for n in obj["nodes"]],
         )
 
 

@@ -6,8 +6,7 @@ client's client.rs:173-370), decorating every authenticated request with
 Basic auth from the ``TokenStore``. Response protocol: 404 with the
 ``Resource-not-found`` header means ``None``; 401/403/400 map back to the
 protocol error types; any other failure is an ``SdaError`` carrying the
-status and body (the 501 of a route the port does not have names its
-ROADMAP item).
+status and body.
 
 Transport: a keep-alive pool of ``http.client`` connections per server
 root (up to ``POOL_MAXSIZE`` idle ones), reused across the client's
@@ -66,9 +65,9 @@ from ..protocol import (
     SdaError,
     SdaService,
     SnapshotResult,
+    TierStatus,
     signed_encryption_key_from_json,
 )
-from ..protocol.resources import TIERS_NOT_PORTED
 from ..utils.hashring import HashRing
 
 
@@ -549,15 +548,11 @@ class SdaHttpClient(SdaService):
         return None if obj is None else AggregationStatus.from_json(obj)
 
     def get_tier_status(self, caller, aggregation_id):
-        # the port has no TierStatus: a port server answers 501 (an
-        # SdaError naming the ROADMAP item), and so would any answer here
         obj = self._request(
             "GET", f"/v1/aggregations/{quote(str(aggregation_id))}/tiers", caller,
             route_key=aggregation_id,
         )
-        if obj is not None:
-            raise NotImplementedError(TIERS_NOT_PORTED)
-        return None
+        return None if obj is None else TierStatus.from_json(obj)
 
     def create_snapshot(self, caller, snapshot) -> None:
         self._request("POST", "/v1/aggregations/implied/snapshot", caller,

@@ -59,10 +59,7 @@ Auth: HTTP Basic, username = AgentId, password = token recorded on first
 ``create_agent`` (trust-on-first-use, lib.rs:298-315). Missing resources are
 404 with a ``Resource-not-found: true`` header so clients can distinguish
 "no resource" from "no route" (lib.rs:338-343). Errors map to
-401 / 403 / 400 / 500 (lib.rs:112-117). The two tier routes answer 501
-with the port's refusal (``TIERS_NOT_PORTED``): the port has no tiered
-aggregation, and a refusal is neither a malformed request nor a transient
-server fault to retry.
+401 / 403 / 400 / 500 (lib.rs:112-117).
 
 Transport: an asyncio event-loop server speaking HTTP/1.1 with
 keep-alive. Idle connections cost a coroutine, not a thread; request *handling* runs on a
@@ -503,10 +500,6 @@ class _RequestContext:
             self._send(403, str(e).encode())
         except InvalidRequestError as e:
             self._send(400, str(e).encode())
-        except NotImplementedError as e:
-            # a part of sda_tpu the port does not have (tiers, Paillier):
-            # the message names the ROADMAP item
-            self._send(501, str(e).encode())
         except Exception as e:  # ServerError and unexpected -> 500
             log.error(
                 "%s %s -> 500: %s (request %s)",

@@ -9,10 +9,7 @@ durable per-clerk job queues laid out as ``queue/<clerk>/``,
 
 Everything is written atomically (tmp + rename) so a crashed server restarts
 from consistent state (SURVEY.md §5). The layout is ``sda_tpu``'s, so a
-store directory either package writes opens in the other. The reference's
-tier-only operations (``discard_participations``,
-``complete_clerking_job``) are not ported: the port refuses tiered
-aggregations at the service.
+store directory either package writes opens in the other.
 """
 
 from __future__ import annotations
@@ -239,6 +236,11 @@ class FileAggregationsStore(AggregationsStore):
             if payload is None:
                 continue  # raced a concurrent delete — nothing to copy
             yield Participation.from_json(payload)
+
+    def discard_participations(self, aggregation_id, participation_ids) -> None:
+        table = self._participations(aggregation_id)
+        for pid in participation_ids:
+            table.delete(pid)
 
     def snapshot_participations(self, aggregation_id, snapshot_id) -> None:
         # write-once: a retry after a partial snapshot must not re-freeze a
@@ -635,6 +637,15 @@ class FileClerkingJobsStore(ClerkingJobsStore):
         # move queue -> done so the job is no longer pollable but stays auditable
         self._done(job.clerk).put(job.id, payload)
         self._queue(job.clerk).delete(job.id)
+
+    def complete_clerking_job(self, clerk_id, job_id) -> None:
+        payload = self._queue(clerk_id).get(job_id)
+        if payload is None:
+            if self._done(clerk_id).get(job_id) is not None:
+                return  # already retired — idempotent replay
+            raise InvalidRequestError(f"no job {job_id}")
+        self._done(clerk_id).put(job_id, payload)
+        self._queue(clerk_id).delete(job_id)
 
     def list_results(self, snapshot_id) -> list:
         return [ClerkingJobId(j) for j in self._results(snapshot_id).list_ids()]

@@ -196,6 +196,14 @@ class MemAggregationsStore(AggregationsStore):
             table = self._participations.get(aggregation_id, {})
             return iter(sorted(table.values(), key=lambda p: str(p.id)))
 
+    def discard_participations(self, aggregation_id, participation_ids) -> None:
+        with self._lock:
+            table = self._participations.get(aggregation_id)
+            if table is None:
+                return
+            for pid in participation_ids:
+                table.pop(pid, None)
+
     def snapshot_participations(self, aggregation_id, snapshot_id) -> None:
         with self._lock:
             # write-once: retries must not re-freeze a different membership
@@ -292,6 +300,13 @@ class MemClerkingJobsStore(ClerkingJobsStore):
                 raise InvalidRequestError(f"no job {result.job}")
             self._results.setdefault(job.snapshot, {})[job.id] = result
             self._done.add(job.id)
+
+    def complete_clerking_job(self, clerk_id, job_id) -> None:
+        with self._lock:
+            job = self._jobs.get(job_id)
+            if job is None or job.clerk != clerk_id:
+                raise InvalidRequestError(f"no job {job_id}")
+            self._done.add(job_id)
 
     def list_results(self, snapshot_id) -> list:
         # job-id order: every store returns the same canonical ordering

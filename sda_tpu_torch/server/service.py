@@ -1,5 +1,5 @@
 """SdaServer core and its ACL-enforcing service wrapper (counterpart of
-``sda_tpu/server/service.py``, flat sodium aggregations only).
+``sda_tpu/server/service.py``, sodium aggregations only).
 
 ``SdaServer`` delegates every RPC to the four stores (the SDA server's
 server.rs:23-191); ``SdaServerService`` implements the protocol's
@@ -7,9 +7,11 @@ server.rs:23-191); ``SdaServerService`` implements the protocol's
 server.rs:193-361 does: recipient-only guards on all recipient routes,
 caller == subject on create/upsert routes, and the clerk-job ownership
 double check on result submission. The auth-token methods serve the REST
-binding's trust-on-first-use login. Tiered aggregations and Paillier
-recipient encryption are not ported: creating one raises
-``NotImplementedError`` (the schemes' decoders already refuse Paillier).
+binding's trust-on-first-use login. Tiered aggregations are validated at
+creation (``protocol/tiers.py`` bounds and promotion rules), a tiered
+root's delete cascades over its derived tree, and share-promotion rows are
+checked at the door. Paillier recipient encryption is not ported: the
+schemes' decoders refuse it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional
 from .. import telemetry
 from ..ops.modular import WIDE_MAX_MODULUS
 from ..protocol import (
+    AdditiveSharing,
     AggregationStatus,
     ChaChaMasking,
     EncryptionKey,
@@ -30,8 +33,10 @@ from ..protocol import (
     ServerError,
     SnapshotResult,
     SnapshotStatus,
+    TierNodeStatus,
+    TierStatus,
 )
-from ..protocol.resources import TIERS_NOT_PORTED
+from ..protocol import tiers as tiers_mod
 from . import snapshot as snapshot_mod
 from . import stores
 
@@ -110,16 +115,84 @@ class SdaServer:
             raise InvalidRequestError(
                 "ChaCha masking dimension differs from aggregation vector dimension"
             )
-        if (
-            aggregation.tiers is not None
-            or aggregation.sub_cohort_size is not None
-            or aggregation.tier_parent is not None
-            or aggregation.tier_promotion is not None
-        ):
-            raise NotImplementedError(TIERS_NOT_PORTED)
+        # hierarchical knobs travel together: tiers counts committee levels
+        # (so 1 is just "flat" and must be spelled as absence — the fields
+        # are omitted from wire/signing bytes when unset, and an explicit
+        # tiers=1 would make two byte-encodings of the same flat semantics)
+        if aggregation.tiers is not None or aggregation.sub_cohort_size is not None:
+            t, m = aggregation.tiers, aggregation.sub_cohort_size
+            if t is None or m is None:
+                raise InvalidRequestError(
+                    "tiers and sub_cohort_size must be set together"
+                )
+            if not 2 <= t <= tiers_mod.MAX_TIERS:
+                raise InvalidRequestError(
+                    f"tiers must be in [2, {tiers_mod.MAX_TIERS}] "
+                    "(flat aggregations omit the field)"
+                )
+            if not 2 <= m <= tiers_mod.MAX_SUB_COHORTS:
+                raise InvalidRequestError(
+                    f"sub_cohort_size must be in [2, {tiers_mod.MAX_SUB_COHORTS}]"
+                )
+            telemetry.gauge(
+                "sda_tier_depth",
+                "committee levels of the most recently created tiered aggregation",
+            ).set(t)
+        if aggregation.tier_promotion is not None:
+            if aggregation.tier_promotion not in (
+                tiers_mod.PROMOTION_REVEAL,
+                tiers_mod.PROMOTION_RESHARE,
+            ):
+                raise InvalidRequestError(
+                    f"tier_promotion must be "
+                    f"{tiers_mod.PROMOTION_REVEAL!r} or "
+                    f"{tiers_mod.PROMOTION_RESHARE!r}"
+                )
+            # the knob only means something on the hierarchical plane: a
+            # root (tiers set) or a derived child (tier_parent set — leaves
+            # carry tiers=None but still promote)
+            if aggregation.tiers is None and aggregation.tier_parent is None:
+                raise InvalidRequestError(
+                    "tier_promotion requires a tiered aggregation"
+                )
+            if aggregation.tier_promotion == tiers_mod.PROMOTION_RESHARE and isinstance(
+                aggregation.committee_sharing_scheme, AdditiveSharing
+            ):
+                # an additive clerk column has no Lagrange weight to
+                # re-share by — there is no share-promotion linear map
+                raise InvalidRequestError(
+                    "share-promotion requires a threshold (Shamir-family) "
+                    "committee sharing scheme; additive sharing promotes "
+                    "by reveal only"
+                )
+        if aggregation.tier_parent is not None:
+            parent = self.aggregation_store.get_aggregation(aggregation.tier_parent)
+            if parent is None or not parent.is_tiered():
+                raise InvalidRequestError(
+                    "tier_parent must name an existing tiered aggregation"
+                )
+            children = {
+                tiers_mod.child_aggregation_id(parent.id, ix)
+                for ix in range(parent.sub_cohort_size)
+            }
+            if aggregation.id not in children:
+                raise InvalidRequestError(
+                    "aggregation is not a derived child of its tier_parent"
+                )
         self.aggregation_store.create_aggregation(aggregation)
 
     def delete_aggregation(self, aggregation_id) -> None:
+        # a tiered root's sub-aggregations are DERIVED state of the root
+        # record (protocol/tiers.py), so deleting the root cascades over
+        # every provisioned node of its tree — orphaned sub-aggregations
+        # would otherwise hold participations no one can ever reveal
+        agg = self.aggregation_store.get_aggregation(aggregation_id)
+        if agg is not None and agg.is_tiered():
+            for node in tiers_mod.iter_tier_nodes(agg):
+                if node.parent is None:
+                    continue
+                if self.aggregation_store.get_aggregation(node.aggregation_id) is not None:
+                    self.aggregation_store.delete_aggregation(node.aggregation_id)
         self.aggregation_store.delete_aggregation(aggregation_id)
 
     def _sodium_key_of(self, key_id, owner):
@@ -175,7 +248,7 @@ class SdaServer:
                 )
         self.aggregation_store.create_committee(committee)
 
-    def _validate_participation(self, participation, committee, expected=None) -> None:
+    def _validate_participation(self, participation, committee, agg, expected=None) -> None:
         # Validate the clerk-encryption list against the committee: the
         # snapshot transpose routes ciphertexts to clerks *by position*
         # (stores.iter_snapshot_clerk_jobs_data), so a short/long/misordered
@@ -200,29 +273,145 @@ class SdaServer:
                     "participation clerk encryptions do not match the committee"
                 )
         if participation.tier_reshare is not None:
-            raise NotImplementedError(TIERS_NOT_PORTED)
+            self._validate_tier_reshare(participation, agg)
+
+    def _validate_tier_reshare(self, participation, agg) -> None:
+        """Gate share-promotion rows at the door: a tagged row must target
+        a tiered parent, name one of its derived children, carry a sane
+        epoch/position/survivor set, and be submitted by the identity the
+        tag claims (the child's clerk at ``position``, or the child's
+        owner for the mask-correction row). Late rows — arriving after the
+        parent froze a snapshot — are rejected so the prepare stage's
+        epoch resolution stays pinned."""
+        tag = participation.tier_reshare
+        if agg is None:
+            return  # the store write will surface the missing aggregation
+        if not agg.is_tiered():
+            raise InvalidRequestError(
+                "tier_reshare rows may only target tiered aggregations"
+            )
+        children = {
+            tiers_mod.child_aggregation_id(agg.id, ix)
+            for ix in range(agg.sub_cohort_size)
+        }
+        if tag.child not in children:
+            raise InvalidRequestError(
+                "tier_reshare child is not a derived child of the aggregation"
+            )
+        if not 0 <= tag.epoch < tiers_mod.MAX_RESHARE_EPOCHS:
+            raise InvalidRequestError(
+                f"tier_reshare epoch must be in [0, {tiers_mod.MAX_RESHARE_EPOCHS})"
+            )
+        child = self.aggregation_store.get_aggregation(tag.child)
+        if child is None:
+            raise InvalidRequestError(
+                "tier_reshare child aggregation is not provisioned"
+            )
+        if tag.position is None:
+            # mask-correction row: the child's owner cancels its
+            # sub-cohort's mask sum one tier up
+            if tag.survivors is not None:
+                raise InvalidRequestError(
+                    "tier_reshare mask rows carry no survivor set"
+                )
+            if not agg.masking_scheme.has_mask():
+                raise InvalidRequestError(
+                    "tier_reshare mask row for a maskless aggregation"
+                )
+            if participation.participant != child.recipient:
+                raise InvalidRequestError(
+                    "tier_reshare mask row must come from the child's owner"
+                )
+        else:
+            n = child.committee_sharing_scheme.output_size
+            threshold = child.committee_sharing_scheme.reconstruction_threshold
+            survivors = tag.survivors
+            if survivors is None:
+                raise InvalidRequestError(
+                    "tier_reshare column rows must carry their survivor set"
+                )
+            if len(set(survivors)) != len(survivors) or any(
+                not 0 <= s < n for s in survivors
+            ):
+                raise InvalidRequestError(
+                    "tier_reshare survivors must be distinct committee positions"
+                )
+            if len(survivors) < threshold:
+                raise InvalidRequestError(
+                    f"tier_reshare survivor set below the reconstruction "
+                    f"threshold {threshold}"
+                )
+            if tag.position not in survivors:
+                raise InvalidRequestError(
+                    "tier_reshare position must be among the survivors"
+                )
+            child_committee = self.aggregation_store.get_committee(tag.child)
+            if child_committee is None:
+                raise InvalidRequestError(
+                    "tier_reshare child has no committee"
+                )
+            clerk, _ = child_committee.clerks_and_keys[tag.position]
+            if participation.participant != clerk:
+                raise InvalidRequestError(
+                    "tier_reshare column row must come from the child's "
+                    "clerk at the claimed position"
+                )
+        if self.aggregation_store.list_snapshots(participation.aggregation):
+            raise InvalidRequestError(
+                "tier_reshare row arrived after the aggregation snapshotted"
+            )
 
     def create_participation(self, participation) -> None:
         committee = self.aggregation_store.get_committee(participation.aggregation)
-        self._validate_participation(participation, committee)
+        agg = self.aggregation_store.get_aggregation(participation.aggregation)
+        self._validate_participation(participation, committee, agg)
         self.aggregation_store.create_participation(participation)
+        self._count_promotion(agg, [participation])
 
     def create_participations(self, participations) -> None:
         """Batched ingest: every item passes the exact single-item checks,
-        with committee lookups amortized per aggregation, then ONE bulk
+        with committee/aggregation lookups amortized per aggregation, then ONE bulk
         store write — which rejects atomically, so one invalid
         participation stores nothing from the batch."""
         participations = list(participations)
         committees: dict = {}
         expected: dict = {}
+        aggs: dict = {}
         for p in participations:
             a = p.aggregation
             if a not in committees:
                 committees[a] = self.aggregation_store.get_committee(a)
+                aggs[a] = self.aggregation_store.get_aggregation(a)
                 if committees[a] is not None:
                     expected[a] = [clerk for (clerk, _) in committees[a].clerks_and_keys]
-            self._validate_participation(p, committees[a], expected.get(a))
+            self._validate_participation(p, committees[a], aggs[a], expected.get(a))
         self.aggregation_store.create_participations(participations)
+        for a, agg in aggs.items():
+            self._count_promotion(agg, [p for p in participations if p.aggregation == a])
+
+    @staticmethod
+    def _count_promotion(agg, participations) -> None:
+        """Every participation accepted into a TIERED aggregation is a
+        promotion by construction: real participants route to leaf
+        sub-aggregations (which are flat), so anything landing on a node
+        with tiers > 1 is a sub-cohort's partial climbing one level
+        (client/tiers.py). ``path`` distinguishes the reveal-promotion rows
+        (untagged re-submissions of a reconstructed partial) from
+        share-promotion rows (tier_reshare-tagged columns + mask
+        corrections)."""
+        if agg is None or not agg.is_tiered():
+            return
+        counts: dict = {}
+        for p in participations:
+            path = "reshare" if p.tier_reshare is not None else "reveal"
+            counts[path] = counts.get(path, 0) + 1
+        for path, n in counts.items():
+            telemetry.counter(
+                "sda_tier_promotions_total",
+                "partial-sum promotions accepted into parent-tier aggregations",
+                tier=str(agg.tiers),
+                path=path,
+            ).inc(n)
 
     def get_aggregation_status(self, aggregation_id) -> Optional[AggregationStatus]:
         agg = self.aggregation_store.get_aggregation(aggregation_id)
@@ -247,6 +436,39 @@ class SdaServer:
             snapshots=snapshots,
         )
 
+    def get_tier_status(self, aggregation_id) -> Optional[TierStatus]:
+        """Readiness of every node of a tiered aggregation's derived tree,
+        BFS order root first — the recipient's one-call view of how far the
+        bottom-up round has climbed. None for flat/unknown aggregations.
+        The tree is enumerated from the root record alone (protocol/
+        tiers.py); nodes the round driver has not provisioned yet report
+        ``exists=False``."""
+        agg = self.aggregation_store.get_aggregation(aggregation_id)
+        if agg is None or not agg.is_tiered():
+            return None
+        nodes = []
+        for node in tiers_mod.iter_tier_nodes(agg):
+            st = self.get_aggregation_status(node.aggregation_id)
+            nodes.append(
+                TierNodeStatus(
+                    aggregation=node.aggregation_id,
+                    tier=node.tier,
+                    parent=node.parent,
+                    exists=st is not None,
+                    number_of_participations=0
+                    if st is None
+                    else st.number_of_participations,
+                    result_ready=st is not None
+                    and any(s.result_ready for s in st.snapshots),
+                )
+            )
+        return TierStatus(
+            aggregation=aggregation_id,
+            tiers=agg.tiers,
+            sub_cohort_size=agg.sub_cohort_size,
+            nodes=nodes,
+        )
+
     def create_snapshot(self, snapshot) -> None:
         snapshot_mod.run_snapshot(self, snapshot)
 
@@ -265,6 +487,9 @@ class SdaServer:
 
     def create_clerking_result(self, result) -> None:
         self.clerking_job_store.create_clerking_result(result)
+
+    def complete_clerking_job(self, clerk_id, job_id) -> None:
+        self.clerking_job_store.complete_clerking_job(clerk_id, job_id)
 
     def get_snapshot_result(self, aggregation_id, snapshot_id) -> Optional[SnapshotResult]:
         # The snapshot must exist AND belong to this aggregation — otherwise
@@ -448,6 +673,10 @@ class SdaServerService(SdaService):
         self._acl_recipient(caller, aggregation_id)
         return self.server.get_aggregation_status(aggregation_id)
 
+    def get_tier_status(self, caller, aggregation_id):
+        self._acl_recipient(caller, aggregation_id)
+        return self.server.get_tier_status(aggregation_id)
+
     def create_snapshot(self, caller, snapshot) -> None:
         self._acl_recipient(caller, snapshot.aggregation)
         self.server.create_snapshot(snapshot)
@@ -505,3 +734,11 @@ class SdaServerService(SdaService):
         _acl_agent_is(caller, job.clerk)
         self.server.create_clerking_result(result)
 
+    def complete_clerking_job(self, caller, job_id) -> None:
+        # same ownership check as create_clerking_result: the job must
+        # exist and belong to the caller before it can be retired
+        job = self.server.get_clerking_job(caller.id, job_id)
+        if job is None:
+            raise ServerError("Job not found")
+        _acl_agent_is(caller, job.clerk)
+        self.server.complete_clerking_job(job.clerk, job_id)

@@ -1,5 +1,5 @@
 """The snapshot pipeline — the server's orchestration heart (counterpart of
-``sda_tpu/server/snapshot.py``, flat aggregations only).
+``sda_tpu/server/snapshot.py``).
 
 The SDA server's snapshot.rs:4-47: freeze the current participation set,
 transpose the (participants x clerks) ciphertext matrix, enqueue one
@@ -7,13 +7,21 @@ durable ClerkingJob per committee member, persist the snapshot, and (when
 the scheme masks) collect every participation's recipient encryption into
 the snapshot mask blob.
 
-The run is a stage pipeline (``SNAPSHOT_STAGES``): freeze -> job fan-out ->
-mask collect -> commit. Everything before the commit stage is idempotent —
-membership freeze is write-once, job ids deterministic, the mask blob a
-plain overwrite of identical content — so a crashed run retried by the
-client replays cleanly into the stores' create-if-identical semantics. The
-reference's share-promotion stage (tiers) and its server-side Paillier mask
-combine are not ported: the server refuses both kinds of aggregation.
+The run is a stage pipeline (``SNAPSHOT_STAGES``): prepare re-share ->
+freeze -> job fan-out -> mask collect -> commit. Everything before the
+commit stage is idempotent — membership freeze is write-once, job ids
+deterministic, the mask blob a plain overwrite of identical content — so a
+crashed run retried by the client replays cleanly into the stores'
+create-if-identical semantics. The reference's server-side Paillier mask
+combine is not ported: the server refuses Paillier aggregations.
+
+Hierarchical aggregations run this SAME pipeline once per node of their
+derived tree (protocol/tiers.py): each sub-aggregation's snapshot fans
+its sub-cohort's columns out to its own sub-committee, so per-clerk work
+is O(cohort/m) instead of O(cohort). ``snapshot_dag`` exposes the
+execution order — leaves first, root last, each node's snapshot
+depending on its children's promotions having landed — which the client
+round driver (client/tiers.py) walks bottom-up.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import logging
 import uuid
 
 from ..protocol import ClerkingJob, ClerkingJobId, ServerError
+from ..protocol import tiers as tiers_mod
 from ..utils.metrics import get_metrics
 from . import stores as stores_mod
 
@@ -36,6 +45,98 @@ _JOB_NAMESPACE = uuid.UUID("6b1b36cf-4f3a-4bca-8a3c-1d53437e8ed9")
 
 def _job_id(snapshot_id, clerk_index: int) -> ClerkingJobId:
     return ClerkingJobId(uuid.uuid5(_JOB_NAMESPACE, f"{snapshot_id}:{clerk_index}"))
+
+
+def snapshot_dag(aggregation) -> list:
+    """The sub-aggregation DAG a full round of ``aggregation`` snapshots
+    through, in execution order: leaves first, root last (reverse
+    breadth-first over the derived tree). Each entry is a
+    ``protocol.tiers.TierNode``; a node's snapshot may only be cut after
+    its children's partial sums have been promoted into it, which is
+    exactly the reversed-BFS order. Flat aggregations yield a
+    single-node DAG — the degenerate tree."""
+    return list(reversed(tiers_mod.iter_tier_nodes(aggregation)))
+
+
+# -- pipeline stages ---------------------------------------------------------
+
+
+def _stage_prepare_reshare(server, aggregation, snapshot) -> None:
+    """Resolve share-promotion epochs BEFORE the membership freeze.
+
+    A tiered parent's participation table may hold, per derived child,
+    tier_reshare-tagged rows from several epochs (the full-committee
+    epoch 0, plus a survivor reissue after a clerk death) and one
+    mask-correction row. Only ONE consistent epoch per child may enter
+    the frozen cut — folding two epochs would double-count the
+    sub-cohort — so this stage picks, per child, the highest COMPLETE
+    epoch (one consistent survivor set, a column row from every survivor,
+    enough survivors to reconstruct) and discards every other tagged row
+    of that child. A child with no complete epoch (or a masked child
+    missing its correction row) contributes nothing: all its rows are
+    dropped and the round continues exact off the surviving subtrees —
+    the cross-tier threshold semantics client/tiers.py builds on.
+
+    Runs only on tiered nodes, and only while membership is still
+    unfrozen: once ``snapshot_participations`` has pinned a member list
+    (a crashed earlier run), the resolution that freeze saw must stand —
+    discarding a frozen member would corrupt the transpose count.
+    """
+    if not aggregation.is_tiered():
+        return
+    if (
+        server.aggregation_store.count_participations_snapshot(
+            snapshot.aggregation, snapshot.id
+        )
+        > 0
+    ):
+        return  # membership already frozen: resolution is pinned
+    by_child: dict = {}
+    for part in server.aggregation_store.iter_participations(snapshot.aggregation):
+        tag = part.tier_reshare
+        if tag is not None:
+            by_child.setdefault(tag.child, []).append(part)
+    needs_mask = aggregation.masking_scheme.has_mask()
+    threshold = aggregation.committee_sharing_scheme.reconstruction_threshold
+    discard = []
+    for child, rows in by_child.items():
+        mask_rows = [p for p in rows if p.tier_reshare.position is None]
+        epochs: dict = {}
+        for p in rows:
+            if p.tier_reshare.position is not None:
+                epochs.setdefault(p.tier_reshare.epoch, []).append(p)
+        chosen = None
+        for epoch in sorted(epochs, reverse=True):
+            cols = epochs[epoch]
+            survivor_sets = {tuple(p.tier_reshare.survivors) for p in cols}
+            if len(survivor_sets) != 1:
+                continue  # inconsistent weights: Lagrange columns disagree
+            survivors = set(next(iter(survivor_sets)))
+            positions = {p.tier_reshare.position for p in cols}
+            if positions != survivors or len(survivors) < threshold:
+                continue  # incomplete epoch: missing a survivor's column
+            chosen = epoch
+            break
+        if chosen is None or (needs_mask and not mask_rows):
+            discard.extend(p.id for p in rows)
+            log.warning(
+                "snapshot %s: child %s has no complete re-share epoch; "
+                "dropping its %d promotion rows (subtree excluded)",
+                snapshot.id,
+                child,
+                len(rows),
+            )
+            continue
+        discard.extend(
+            p.id
+            for p in rows
+            if p.tier_reshare.position is not None and p.tier_reshare.epoch != chosen
+        )
+    if discard:
+        with get_metrics().phase("snapshot.prepare_reshare"):
+            server.aggregation_store.discard_participations(
+                snapshot.aggregation, discard
+            )
 
 
 def _stage_freeze(server, aggregation, snapshot) -> None:
@@ -120,6 +221,7 @@ def _stage_commit(server, aggregation, snapshot) -> None:
 #: the pipeline, in order; each stage is f(server, aggregation, snapshot).
 #: Every stage before the final commit is idempotent by construction.
 SNAPSHOT_STAGES = (
+    _stage_prepare_reshare,
     _stage_freeze,
     _stage_fanout_jobs,
     _stage_collect_masks,

@@ -25,9 +25,7 @@ holds the write lock — two processes racing create-if-identical or the
 job-done flip serialize instead of interleaving.
 
 The schema is ``sda_tpu``'s, so a database either package writes opens in
-the other. The reference's tier-only operations
-(``discard_participations``, ``complete_clerking_job``) are not ported:
-the port refuses tiered aggregations at the service.
+the other.
 """
 
 from __future__ import annotations
@@ -498,7 +496,7 @@ class SqliteAggregationsStore(AggregationsStore):
         return row[0]
 
     def iter_participations(self, aggregation_id):
-        # ordered full scan: id-keyed
+        # ordered full scan for the shard-migration copier: id-keyed
         # batches keep memory bounded like iter_snapped_participations
         a = str(aggregation_id)
         last = ""
@@ -514,6 +512,22 @@ class SqliteAggregationsStore(AggregationsStore):
             for pid, body in rows:
                 yield Participation.from_json(json.loads(body))
             last = rows[-1][0]
+
+    def discard_participations(self, aggregation_id, participation_ids) -> None:
+        ids = [str(pid) for pid in participation_ids]
+        if not ids:
+            return
+        a = str(aggregation_id)
+        chunk = 500  # stay under SQLITE_MAX_VARIABLE_NUMBER (999 legacy)
+        with self.db.transaction() as conn:
+            for lo in range(0, len(ids), chunk):
+                part = ids[lo : lo + chunk]
+                marks = ",".join("?" * len(part))
+                conn.execute(
+                    f"DELETE FROM participations "
+                    f"WHERE aggregation = ? AND id IN ({marks})",
+                    [a] + part,
+                )
 
     def snapshot_participations(self, aggregation_id, snapshot_id) -> None:
         s = str(snapshot_id)
@@ -914,6 +928,15 @@ class SqliteClerkingJobsStore(ClerkingJobsStore):
             conn.execute(
                 "UPDATE jobs SET done = 1 WHERE id = ?", (str(result.job),)
             )
+
+    def complete_clerking_job(self, clerk_id, job_id) -> None:
+        with self.db.transaction() as conn:
+            row = conn.execute(
+                "SELECT clerk FROM jobs WHERE id = ?", (str(job_id),)
+            ).fetchone()
+            if row is None or row[0] != str(clerk_id):
+                raise InvalidRequestError(f"no job {job_id}")
+            conn.execute("UPDATE jobs SET done = 1 WHERE id = ?", (str(job_id),))
 
     def list_results(self, snapshot_id) -> list:
         rows = self.db.query_all(

@@ -203,6 +203,16 @@ class AggregationsStore(BaseStore):
     @abc.abstractmethod
     def iter_snapped_participations(self, aggregation_id, snapshot_id) -> Iterator: ...
 
+    def discard_participations(self, aggregation_id, participation_ids) -> None:
+        """Remove the given participation rows before any snapshot freezes
+        them — the share-promotion prepare stage drops incomplete re-share
+        epochs here (server/snapshot.py). Missing ids are ignored; rows
+        already frozen into a snapshot must never be passed (the pipeline
+        guards on frozen membership before resolving)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support discard_participations"
+        )
+
     def count_participations_snapshot(self, aggregation_id, snapshot_id) -> int:
         return sum(1 for _ in self.iter_snapped_participations(aggregation_id, snapshot_id))
 
@@ -350,6 +360,17 @@ class ClerkingJobsStore(BaseStore):
 
     @abc.abstractmethod
     def create_clerking_result(self, result) -> None: ...
+
+    def complete_clerking_job(self, clerk_id, job_id) -> None:
+        """Retire a job WITHOUT filing a clerking result — the terminal of
+        tier share-promotion (the clerk's output left as tagged
+        participations of the parent aggregation, so no recipient-sealed
+        result may exist). Must be idempotent: completing an already-done
+        job is a no-op; an unknown/foreign job raises. Backends that
+        predate share-promotion inherit this raising default."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement complete_clerking_job"
+        )
 
     @abc.abstractmethod
     def list_results(self, snapshot_id) -> list: ...

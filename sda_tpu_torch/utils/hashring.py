@@ -1,11 +1,13 @@
 """Consistent hashing of aggregation ids over K partitions (copy of
 ``sda_tpu/utils/hashring.py``).
 
-The multi-frontend REST client (``rest/client.py``) uses it to pick a
-frontend for a request; the reference's sharded store (not ported yet)
-hashes the same key (the aggregation id as a string) to pick a partition,
-so an aggregation's traffic lands on one frontend and one partition
-without any coordination between them.
+One ring serves both halves of the sharded coordination plane: the
+sharded store (``server/sharded.py``) uses it to pick the backing
+partition for an aggregation, and the multi-frontend REST client
+(``rest/client.py``) uses it to pick a frontend for a request — both
+sides hash the same key (the aggregation id as a string), so an
+aggregation's traffic lands on one frontend and one partition without any
+coordination between them.
 
 Classic fixed-ring construction: each partition owns ``vnodes`` points
 on a 64-bit ring (SHA-1 of ``"shard-<ix>-<vnode>"``), a key maps to the

@@ -5,7 +5,8 @@ called in process, the committee drained by ``sda clerk --once`` or by
 ``sdad committee --once``); a recipient identity made by the reference's
 ``agent create`` and ``keys create`` serves the port's CLI; ``python -m
 sda_tpu_torch.cli.sdad`` starts as a process and prints its ``listening``
-line; ``--shards 2`` and a missing GPU are refused."""
+line, and with ``--shards 2 --replicas 2`` serves the walkthrough over a
+sharded, replicated store; a missing GPU is refused."""
 
 from __future__ import annotations
 
@@ -119,9 +120,40 @@ def test_sda_needs_a_gpu_unless_asked_for_the_cpu(file_server):
         sdad.main(["committee", "-s", url, "--once", "-i", str(data / "x")])
 
 
-def test_sdad_refuses_shards(tmp_path, capsys):
-    assert sdad.main(["--file", str(tmp_path / "s"), "--shards", "2", "httpd"]) == 2
-    assert "ROADMAP queue A: the sharded store" in capsys.readouterr().err
+def _spawn_sdad(*argv):
+    """Start ``python -m sda_tpu_torch.cli.sdad ARGV`` and return the
+    process and the URL of its ``listening`` line."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sda_tpu_torch.cli.sdad", *argv], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    deadline, line = time.monotonic() + 60, ""
+    while time.monotonic() < deadline and not line.startswith("sdad: listening on "):
+        if select.select([proc.stdout], [], [], 1.0)[0]:
+            line = proc.stdout.readline()
+    if not line.startswith("sdad: listening on "):
+        proc.terminate()
+        raise AssertionError(proc.stderr.read() if proc.poll() is not None else line)
+    return proc, "http://" + line.split("listening on ", 1)[1].strip()
+
+
+def test_sdad_refuses_shards(tmp_path):
+    """``sdad --sqlite ROOT --shards 2 --replicas 2 httpd`` serves the CLI
+    walkthrough as ``sda_tpu``'s sdad does, and lays the shards out as
+    ``sda_tpu`` does: ``shard-00.db`` and ``shard-01.db`` under ROOT."""
+    root = tmp_path / "store"
+    proc, url = _spawn_sdad("--sqlite", str(root), "--shards", "2", "--replicas", "2",
+                            "httpd", "-b", "127.0.0.1:0")
+    try:
+        def drain(dirs):
+            for d in dirs:
+                _run(sda.main, url, d, "clerk", "--once")
+
+        assert _walkthrough(url, tmp_path / "agent", drain) == EXPECTED
+    finally:
+        proc.terminate()
+        proc.wait(timeout=20)
+    assert sorted(p.name for p in root.glob("shard-*.db")) == ["shard-00.db", "shard-01.db"]
 
 
 def test_sdad_module_entry(tmp_path):

@@ -7,7 +7,7 @@ wire and the paged chunk routes; every reveal equals numpy's sum mod p.
 Then the reference's ``test_rest.py`` cases on the port's server and
 client (route table, auth and error mapping, malformed bodies as 400s,
 keep-alive shutdown and reaping, trace ids, health, metrics, history, slow
-requests), the tier routes' refusal, and a round under injected faults
+requests), the tier routes answering as the reference's do, and a round under injected faults
 that still reveals exactly. Servers run on ``serve_background`` threads.
 """
 
@@ -43,6 +43,7 @@ from sda_tpu_torch.protocol import (
     SdaError,
 )
 from sda_tpu_torch.rest import SdaHttpClient, TokenStore, serve_background
+from sda_tpu_torch.rest.client import _is_dropped
 from sda_tpu_torch.rest.server import listen
 from sda_tpu_torch.server import new_mem_server
 
@@ -308,8 +309,7 @@ ADDITIVE_ROUTES = [
 
 def test_route_table_served_like_reference(http_ctx):
     """Every route of the SDA server and of ``sda_tpu``'s additions is
-    routed (no plain 404), and answers with the reference server's status
-    — except the two tier routes, which the port refuses with 501."""
+    routed (no plain 404), and answers with the reference server's status."""
     _, base_url, tmp_path = http_ctx
     alice = _client(tmp_path / "alice", base_url)
     alice.upload_agent()
@@ -326,23 +326,65 @@ def test_route_table_served_like_reference(http_ctx):
             theirs = requests.request(method, f"{ref_url}{path}", json={}, timeout=30,
                                       auth=(str(jalice.agent.id), jrest.TokenStore(tmp_path / "jalice").get()))
             assert not (ours.status_code == 404 and "Resource-not-found" not in ours.headers), template
-            if template.endswith(("/tiers", "/complete")):
-                assert ours.status_code == 501 and "ROADMAP" in ours.text, (template, ours.text)
-            else:
-                assert ours.status_code == theirs.status_code, (method, template, ours.text)
+            assert ours.status_code == theirs.status_code, (method, template, ours.text)
+
+
+def _outcome(call):
+    """What a service call gave: its wire JSON, or its error's class and text."""
+    try:
+        out = call()
+    except Exception as e:  # noqa: BLE001 — the class is the outcome
+        return ("error", type(e).__name__, str(e))
+    return ("ok", None if out is None else json.dumps(out.to_json(), sort_keys=True))
 
 
 def test_tier_routes_refused_with_the_roadmap_item(http_ctx):
+    """Both tier routes answer as ``sda_tpu``'s do, over HTTP and in
+    process: a tiered root's status is byte-equal wire JSON, a flat
+    aggregation has none, an unknown job cannot be completed, and a
+    stranger may not read the tree."""
     _, base_url, tmp_path = http_ctx
-    alice = _client(tmp_path / "alice", base_url)
-    alice.upload_agent()
-    with pytest.raises(SdaError, match=r"501 .*ROADMAP queue D: tiers"):
-        alice.service.get_tier_status(alice.agent, tp.AggregationId.random())
-    with pytest.raises(SdaError, match=r"501 .*ROADMAP queue D: tiers"):
-        alice.service.complete_clerking_job(alice.agent, tp.ClerkingJobId.random())
-    # the in-process service refuses the same way, before any transport
-    with pytest.raises(NotImplementedError, match="ROADMAP queue D: tiers"):
-        new_mem_server().get_tier_status(alice.agent, tp.AggregationId.random())
+    root_id, job_id = "0e5d7c1a-8b7f-4c1e-9a55-3f2b1d6c4e70", "7d0a4c2e-1f3b-4a5d-8e6f-9c8b7a6d5e4f"
+    outcomes = []
+    with jrest.serve_background(j_server()) as ref_url:
+        for name, pkg, url in (("port", PORT, base_url), ("reference", REFERENCE, ref_url)):
+            proto = pkg["proto"]
+            alice = _member(pkg, tmp_path / f"alice-{name}", url)
+            alice.upload_agent()
+            key = alice.new_encryption_key()
+            alice.upload_encryption_key(key)
+            stranger = _member(pkg, tmp_path / f"bob-{name}", url)
+            stranger.upload_agent()
+
+            def aggregation(agg_id, **tier):
+                return proto.Aggregation(
+                    id=proto.AggregationId(agg_id), title="tiers", vector_dimension=4,
+                    modulus=P, recipient=alice.agent.id, recipient_key=key,
+                    masking_scheme=proto.NoMasking(),
+                    committee_sharing_scheme=proto.AdditiveSharing(share_count=2, modulus=P),
+                    recipient_encryption_scheme=proto.SodiumEncryptionScheme(),
+                    committee_encryption_scheme=proto.SodiumEncryptionScheme(), **tier)
+
+            flat = aggregation(str(uuid.UUID(int=1)))
+            alice.upload_aggregation(aggregation(root_id, tiers=2, sub_cohort_size=3))
+            alice.upload_aggregation(flat)
+            svc = alice.service
+            outcomes.append([
+                _outcome(lambda: svc.get_tier_status(alice.agent, proto.AggregationId(root_id))),
+                _outcome(lambda: svc.get_tier_status(alice.agent, flat.id)),
+                _outcome(lambda: svc.complete_clerking_job(alice.agent, proto.ClerkingJobId(job_id))),
+                _outcome(lambda: stranger.service.get_tier_status(
+                    stranger.agent, proto.AggregationId(root_id)))[:2],
+            ])
+    assert outcomes[0] == outcomes[1]
+    assert outcomes[0][0][0] == "ok" and '"tiers": 2' in outcomes[0][0][1]
+    assert outcomes[0][1] == ("ok", None)
+    # the in-process services agree before any transport
+    agent = tp.Agent(id=AgentId.random(), verification_key=None)
+    ours = _outcome(lambda: new_mem_server().get_tier_status(agent, tp.AggregationId(root_id)))
+    theirs = _outcome(lambda: j_server().get_tier_status(
+        jp.Agent(id=jp.AgentId(str(agent.id)), verification_key=None), jp.AggregationId(root_id)))
+    assert ours == theirs
 
 
 def test_transport_failures_are_sda_errors(tmp_path):
@@ -396,10 +438,17 @@ def test_idle_keepalive_connections_are_reaped(tmp_path, monkeypatch):
             while s.recv(4096):
                 pass
             assert time.perf_counter() - t0 < 5.0
-        # the client notices the reaped pooled connection and reconnects
+        # the client notices the reaped pooled connection and reconnects:
+        # wait until the server has closed the pooled socket (it reads as
+        # ready), rather than sleeping a fixed time that a loaded host may
+        # not honour before the reaper runs
         client = SdaHttpClient(base_url, TokenStore(tmp_path))
         assert client.ping().running
-        time.sleep(0.5)
+        (pool,) = client._pools.values()
+        deadline = time.monotonic() + 10.0
+        while not all(_is_dropped(c) for c in pool._idle) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert pool._idle and all(_is_dropped(c) for c in pool._idle)
         assert client.ping().running
 
 

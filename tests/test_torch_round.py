@@ -215,19 +215,27 @@ def test_maskers_default_to_cuda():
 
 
 def test_tiered_aggregation_not_ported(tmp_path):
-    service = t_server()
-    recipient = _client(PORT, tmp_path, service)
-    recipient.upload_agent()
-    key = recipient.new_encryption_key()
-    recipient.upload_encryption_key(key)
-    aggregation = tp.Aggregation(
-        id=tp.AggregationId.random(), title="t", vector_dimension=DIM, modulus=P,
-        recipient=recipient.agent.id, recipient_key=key, masking_scheme=tp.NoMasking(),
-        committee_sharing_scheme=SHARINGS["packed"](tp),
-        recipient_encryption_scheme=tp.SodiumEncryptionScheme(),
-        committee_encryption_scheme=tp.SodiumEncryptionScheme(), sub_cohort_size=2, tiers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A tiered root is accepted by the port's server as by ``sda_tpu``'s,
+    and each serves it back with the same wire JSON."""
+    stored = []
+    for pkg in (PORT, REFERENCE):
+        proto = pkg[0]
+        service = pkg[3]()
+        recipient = _client(pkg, tmp_path / pkg[0].__name__, service)
+        recipient.upload_agent()
+        key = recipient.new_encryption_key()
+        recipient.upload_encryption_key(key)
+        aggregation = proto.Aggregation(
+            id=proto.AggregationId("5b8e7bd6-3f36-4f4b-9c1c-0d3a4f0e2a11"), title="t",
+            vector_dimension=DIM, modulus=P, recipient=recipient.agent.id, recipient_key=key,
+            masking_scheme=proto.NoMasking(), committee_sharing_scheme=SHARINGS["packed"](proto),
+            recipient_encryption_scheme=proto.SodiumEncryptionScheme(),
+            committee_encryption_scheme=proto.SodiumEncryptionScheme(), sub_cohort_size=2, tiers=2)
         recipient.upload_aggregation(aggregation)
+        got = service.get_aggregation(recipient.agent, aggregation.id).to_json()
+        stored.append({**got, "recipient": None, "recipient_key": None})
+        assert got["tiers"] == 2 and got["sub_cohort_size"] == 2
+    assert stored[0] == stored[1]
 
 
 class WireBridge:
