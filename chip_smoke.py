@@ -106,12 +106,12 @@ Phases, each reported on its own line:
    below the device threshold, that launches no K2; K2 against its plain
    version at the reveal fold's shape on the round's seeds, and its
    ``numbers`` there.
-15. trainer: ``FederatedTrainer.run_round`` twice over
+15. trainer: ``FederatedTrainer.run_round`` once (``TRAINER_ROUNDS``) over
    ``DPFederatedAveraging`` at the CNN's width (phase 13's DP setting, the
    field and scheme from ``fitted_spec``) through the sealed round of
    phase 14's deployment, ``FedAdam`` as the server step, checkpoints in a
    temporary directory, 10 participants submitting on 4 threads (each with
-   a child generator for its noise); one ``trainer round`` line each with
+   a child generator for its noise); one ``trainer round`` line with
    ``wall_s`` split into ``submit_s``, ``clerking_s``, ``reveal_s``,
    ``mask_combine_s``, ``apply_s`` and ``save_s``, the checkpoint bytes
    and its checks (the revealed sum against numpy's sum of the submitted
@@ -155,12 +155,42 @@ Phases, each reported on its own line:
    ``sda_http_requests_total`` equal to the requests the clients completed
    (with the phase's own metrics polls); K2 against its plain version at
    each fold's shape.
+19. ingest round: arrival-driven ingest and the paged reads — one ``python
+   -m sda_tpu_torch.cli.sdad --sqlite <tmp>/sda.db httpd`` subprocess
+   (``--file`` where this Python has no ``sqlite3``) that pages every job
+   and every result in ranges of 4 (``SDA_JOB_PAGE_THRESHOLD=0``,
+   ``SDA_JOB_CHUNK_SIZE=4``, ``SDA_RESULT_PAGE_THRESHOLD=0``,
+   ``SDA_RESULT_CHUNK_SIZE=4``), clients reading 3 ranges ahead
+   (``SDA_PREFETCH_DEPTH=3``). Phase 14's aggregation at the CNN's width,
+   16 phones on 4 participant identities through ``ingest_cohort(...,
+   window=8)`` on the trace
+   ``base=0.5,diurnal=0.6@20,burst=0.15@4,churn=0.25:16``; the snapshot,
+   the 8 clerks on 8 threads each reading its paged job through the
+   prefetch pipeline, the recipient's paged reveal folding each mask range
+   of 4 seeds as it arrives, on K2. One ``ingest round`` line (stage
+   seconds of plan, build, upload, snapshot, clerking, reveal and wall, the
+   lag and backlog, windows and batches, both overlap gauges, each fold's
+   ``mask_combine_s``, requests and bytes) and its checks: the reveal
+   against numpy's sum mod p, one K2 launch per mask range of at least
+   2^22 elements and each on the reveal's own thread, every job and the
+   result read in more than one range, no live row released before its
+   arrival less the slack, churned rows after every live row, the churn
+   count, the backlog bound, the server's request count; K2 against its
+   plain version at each range's shape.
+20. paillier round: against the same ``sdad``, 10 participants of 1,000
+   field values under Full masking with their masks encrypted to a
+   2,048-bit Paillier key (``PackedPaillierEncryptionScheme`` of 50
+   components of 40 bits), phase 14's packed Shamir; the server's snapshot
+   combines the mask ciphertexts into one. One ``paillier round`` line
+   (keygen, participate, snapshot, clerking and reveal seconds) and its
+   checks: the reveal against numpy's sum mod p, one mask encryption in the
+   paged result, no K2 launch, the server's request count.
 
 Then the ``{"kernels": [...]}`` line (launches: K1's on the main path, the
 fabrics, the FedAvg round, the bench's K1 route, the ladder's config 3 and
 the model rounds, K2's on the masked path, the fabrics, the FedAvg round,
-the model rounds, the sealed round, the trainer rounds, the REST round and
-the tier round),
+the model rounds, the sealed round, the trainer rounds, the REST round,
+the tier round and the ingest round),
 and last ``{"ok":
 true, "device": ...}``. Any failed phase raises, and the script exits
 nonzero.
@@ -172,8 +202,10 @@ import argparse
 import json
 import os
 import shutil
+import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1715,20 +1747,21 @@ def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = Fals
             "folds": folds, "checks": checks}
 
 
-def _sealed_updates(dev, rng):
-    """``SEALED_COHORT`` float updates of the ``FEDAVG_MODEL`` CNN drawn from
+def _sealed_updates(dev, rng, count: int = SEALED_COHORT):
+    """``count`` float updates of the ``FEDAVG_MODEL`` CNN drawn from
     ``rng``, each quantized by ``quantize_update`` under
-    ``QuantizationSpec.fitted``; returns ``(scheme, field vectors)``."""
+    ``QuantizationSpec.fitted`` for ``count`` participants; returns
+    ``(scheme, field vectors)``."""
     import math
 
     import numpy as np
 
     from sda_tpu_torch.models import QuantizationSpec, quantize_update
 
-    spec, scheme = QuantizationSpec.fitted(FEDAVG_FRAC_BITS, FEDAVG_CLIP, SEALED_COHORT)
+    spec, scheme = QuantizationSpec.fitted(FEDAVG_FRAC_BITS, FEDAVG_CLIP, count)
     dim = sum(math.prod(s) for leaves in FEDAVG_MODEL.values() for s in leaves.values())
     values = []
-    for _ in range(SEALED_COHORT):
+    for _ in range(count):
         update = {layer: {name: rng.normal(0.0, UPDATE_SCALE, size=shape).astype(np.float32)
                           for name, shape in leaves.items()} for layer, leaves in FEDAVG_MODEL.items()}
         values.append(quantize_update(update, spec, device=dev)[0].cpu().numpy())
@@ -1842,8 +1875,10 @@ def sealed_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
 # server Adam, checkpoints in a temporary directory, the paper's per-round
 # cohort of 10 (SEALED_COHORT) submitted on TRAINER_PARALLEL threads, over
 # SEALED_CLERKS clerks on ``new_mem_server``; TRAINER_ROUNDS rounds, then a
-# fresh trainer restores the last checkpoint
-TRAINER_ROUNDS, TRAINER_PARALLEL = 2, 4
+# fresh trainer restores the last checkpoint. One round since phases 19-20
+# came in: the script stays near half its time limit, and the restore check
+# needs only one checkpoint
+TRAINER_ROUNDS, TRAINER_PARALLEL = 1, 4
 
 
 def _wrap(obj, name: str, before=None, after=None):
@@ -1877,7 +1912,7 @@ def _timed(obj, name: str, seconds: dict, key: str) -> None:
 
 
 def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
-    """Phase 15: ``FederatedTrainer.run_round`` twice over a
+    """Phase 15: ``FederatedTrainer.run_round`` ``TRAINER_ROUNDS`` times over a
     ``DPFederatedAveraging`` driver of the ``FEDAVG_MODEL`` CNN (L2 clip
     1.0, noise multiplier 1.0, δ = 1e-6, the field and packed-Shamir scheme
     from ``fitted_spec``), ``FedAdam`` applying the revealed mean, 10
@@ -2227,6 +2262,16 @@ def _start_sdad(store_args, log_path: Path, env=None):
     raise AssertionError(f"sdad {store_args} did not start; stderr:\n{log_path.read_text()[-3000:]}")
 
 
+def _round_store(tmp: Path) -> list:
+    """``sdad``'s store arguments for a round: sqlite under ``tmp``, or the
+    file store where this Python has no ``sqlite3``."""
+    try:
+        import sqlite3  # noqa: F401
+    except ImportError:
+        return ["--file", str(tmp / "store")]
+    return ["--sqlite", str(tmp / "sda.db")]
+
+
 def _stop(proc) -> None:
     proc.terminate()
     try:
@@ -2234,6 +2279,55 @@ def _stop(proc) -> None:
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
+
+
+class _Traffic:
+    """Counts what every ``SdaHttpClient`` of this process exchanges while
+    installed: requests and bytes each way, and the range reads of paged
+    jobs and results by the job or snapshot they read. Clerk threads and
+    prefetch workers exchange concurrently, so every count is taken under
+    one lock."""
+
+    RANGES = re.compile(r"/(jobs|snapshots)/([^/]+)/(chunks|result/masks|result/clerks)/\d+$")
+
+    def __init__(self):
+        self.counts = {"requests": 0, "bytes_up": 0, "bytes_down": 0}
+        self.ranges: dict = {}
+        self._lock = threading.Lock()
+        self._real = None
+
+    def install(self) -> None:
+        from sda_tpu_torch.rest import SdaHttpClient
+
+        real = self._real = SdaHttpClient._exchange
+
+        def counted(client, root, method, target, body, headers):
+            resp = real(client, root, method, target, body, headers)
+            match = self.RANGES.search(target.split("?", 1)[0])
+            with self._lock:
+                self.counts["requests"] += 1
+                self.counts["bytes_up"] += len(body or b"")
+                self.counts["bytes_down"] += len(resp.content)
+                if match:
+                    key = (match.group(3), match.group(2))
+                    self.ranges[key] = self.ranges.get(key, 0) + 1
+            return resp
+
+        SdaHttpClient._exchange = counted
+
+    def remove(self) -> None:
+        from sda_tpu_torch.rest import SdaHttpClient
+
+        if self._real is not None:
+            SdaHttpClient._exchange = self._real
+            self._real = None
+
+    def __enter__(self):
+        self.install()
+        return self
+
+    def __exit__(self, *exc):
+        self.remove()
 
 
 def _prometheus_sum(text: str, name: str, **labels) -> float:
@@ -2304,29 +2398,15 @@ def rest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     from sda_tpu_torch.ops import chacha_cuda
     from sda_tpu_torch.rest import SdaHttpClient, TokenStore, wire
 
-    try:  # a probe, printed on the line: without sqlite3 the round runs on --file
-        import sqlite3  # noqa: F401
-
-        has_sqlite = True
-    except ImportError:
-        has_sqlite = False
     rng = np.random.default_rng(seed + 17)
     scheme, values = _sealed_updates(dev, rng)
     p, dim = scheme.prime_modulus, len(values[0])
     want = np.stack(values).sum(axis=0) % p
-    traffic = {"requests": 0, "bytes_up": 0, "bytes_down": 0}
-    real_exchange = SdaHttpClient._exchange
-
-    def counted(self, root, method, target, body, headers):
-        resp = real_exchange(self, root, method, target, body, headers)
-        traffic["requests"] += 1
-        traffic["bytes_up"] += len(body or b"")
-        traffic["bytes_down"] += len(resp.content)
-        return resp
+    traffic = _Traffic()
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        store = ["--sqlite", str(tmp / "sda.db")] if has_sqlite else ["--file", str(tmp / "store")]
+        store = _round_store(tmp)
         proc, url = _start_sdad(store, tmp / "sdad.log")
         try:
             def service_for(name):
@@ -2334,12 +2414,9 @@ def rest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
 
             torch.cuda.synchronize()
             chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
-            SdaHttpClient._exchange = counted
-            try:
+            with traffic:
                 out = sealed_round(dev, tmp / "round", values, scheme, with_checks=True,
                                    service_for=service_for)
-            finally:
-                SdaHttpClient._exchange = real_exchange
             launches, recoveries = chacha_cuda.launches, chacha_cuda.slack_recoveries
             with urllib.request.urlopen(url + "/v1/metrics", timeout=60) as resp:
                 metrics = resp.read().decode("utf-8")
@@ -2348,11 +2425,12 @@ def rest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
         served = _prometheus_sum(metrics, "sda_http_requests_total")
         exact = bool(np.array_equal(out["values"], want))
         checks = {"sum": exact, "one_k2_launch": launches - recoveries == 1,
-                  "metrics_count_requests": served == traffic["requests"], **out["checks"]}
+                  "metrics_count_requests": served == traffic.counts["requests"], **out["checks"]}
         _line("rest round", participants=SEALED_COHORT, clerks=SEALED_CLERKS, dim=dim, modulus=p,
               scheme={"k": scheme.secret_count, "t": scheme.privacy_threshold, "n": scheme.share_count},
-              **out["seconds"], **traffic, served_requests=served, wire=wire.mode(),
-              store=store[0][2:], sqlite3=has_sqlite, seals=out["seals"], seal_mb_s=out["seal_mb_s"],
+              **out["seconds"], **traffic.counts, served_requests=served, wire=wire.mode(),
+              store=store[0][2:], sqlite3=store[0] == "--sqlite", seals=out["seals"],
+              seal_mb_s=out["seal_mb_s"],
               opens=out["opens"], open_mb_s=out["open_mb_s"], launches={"chacha20": launches},
               slack_recoveries=recoveries, exact=exact, checks=checks, card=card)
         if not all(checks.values()):
@@ -2460,15 +2538,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     want = np.stack(values).sum(axis=0) % p
     threshold = ChaChaMasker.DEVICE_COMBINE_THRESHOLD
     at_least = -(-threshold // dim)  # rows whose fold reaches the device threshold
-    traffic = {"requests": 0, "bytes_up": 0, "bytes_down": 0}
-    real_exchange = SdaHttpClient._exchange
-
-    def counted(self, root, method, target, body, headers):
-        resp = real_exchange(self, root, method, target, body, headers)
-        traffic["requests"] += 1
-        traffic["bytes_up"] += len(body or b"")
-        traffic["bytes_down"] += len(resp.content)
-        return resp
+    traffic = _Traffic()
 
     folds = []
     real_combine = masking.combine_masks_device
@@ -2530,7 +2600,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
             torch.cuda.synchronize()
             chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
             telemetry.reset()
-            SdaHttpClient._exchange = counted
+            traffic.install()
             masking.combine_masks_device = timed_combine
             sharing.PackedShamirReconstructor.reconstruct = counted_reconstruct
             t_wall = time.perf_counter()
@@ -2595,7 +2665,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
             seconds["wall_s"] = time.perf_counter() - t_wall
             failed = False
         finally:
-            SdaHttpClient._exchange = real_exchange
+            traffic.remove()
             masking.combine_masks_device = real_combine
             sharing.PackedShamirReconstructor.reconstruct = real_reconstruct
             if marker is not None and marker.exists():
@@ -2640,7 +2710,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
         "hinted_while_down": hinted.get("while_down", 0) > 0,
         "hints_drained": hinted.get("depth_after_heal") == 0,
         "no_hint_dropped": abandoned == 0,
-        "metrics_count_requests": served == traffic["requests"] + polls,
+        "metrics_count_requests": served == traffic.counts["requests"] + polls,
         "shard_layout": layout == [f"shard-{ix:02d}.db" for ix in range(TIER_SHARDS)],
     }
     _line("tier round", participants=SEALED_COHORT, clerks=SEALED_CLERKS, dim=dim, modulus=p,
@@ -2653,7 +2723,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
           root_clerking_s=spans["tier.root_close"],
           reveal_s=spans["tier.root_reveal"] - seconds["drain_s"], drain_s=seconds["drain_s"],
           mask_combine_s=[a.elapsed_time(b) / 1e3 for (a, b), _ in folds], fold_rows=fold_rows,
-          wall_s=seconds["wall_s"], **traffic, served_requests=served, metrics_polls=polls,
+          wall_s=seconds["wall_s"], **traffic.counts, served_requests=served, metrics_polls=polls,
           wire=wire.mode(), hints_hinted=hinted.get("while_down"), hints_drained=drained,
           hints_abandoned=abandoned, abandoned_log=abandoned_log,
           handoff_s=TIER_HANDOFF_S, handoff_attempts=TIER_HANDOFF_ATTEMPTS,
@@ -2665,6 +2735,364 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     for ix, fold in enumerate(folds):
         k2_err = max(k2_err, _k2_at_fold(card, dev, [fold], dim, p, sm_clocks_per_ms, launches,
                                          f"tier round fold {ix}"))
+    return launches, k2_err
+
+
+# phase 19: arrival-driven ingest against one ``sdad --sqlite`` whose every
+# job and result is paged (the reference's own knobs, as
+# tests/test_reveal_chunks.py sets them), the clients reading ranges
+# INGEST_PREFETCH_DEPTH deep. The cohort is INGEST_PHONES phones on
+# INGEST_IDENTITIES participant identities (``ingest_cohort`` cycles them),
+# released on the flagship's default trace shape (scripts/flagship.py:518)
+# with the base rate scaled to what this host builds at the CNN's width
+INGEST_PHONES, INGEST_IDENTITIES, INGEST_WINDOW = 16, 4, 8
+INGEST_TRACE = "base=0.5,diurnal=0.6@20,burst=0.15@4,churn=0.25:16"
+INGEST_PREFETCH_DEPTH, INGEST_RANGE = 3, 4
+INGEST_SERVER_ENV = {"SDA_JOB_PAGE_THRESHOLD": "0", "SDA_JOB_CHUNK_SIZE": str(INGEST_RANGE),
+                     "SDA_RESULT_PAGE_THRESHOLD": "0", "SDA_RESULT_CHUNK_SIZE": str(INGEST_RANGE)}
+# phase 20: the Packed Paillier round against the same ``sdad``. 50 components
+# of 40 bits fill 2,000 of a 2,048-bit key's plaintext bits and hold 2^8
+# additions of 32-bit values, more than PAILLIER_COHORT; the dimension is cut
+# to PAILLIER_DIM because every ciphertext block is a 4,096-bit host ``pow``
+PAILLIER_DIM, PAILLIER_COHORT, PAILLIER_KEY_BITS = 1_000, 10, 2048
+PAILLIER_PACKING = {"component_count": 50, "component_bitsize": 40, "max_value_bitsize": 32,
+                    "min_modulus_bitsize": PAILLIER_KEY_BITS}
+
+
+def _gauge_value(telemetry, name: str):
+    values = [value for (n, _), value in telemetry.get_registry().snapshot()["gauges"].items()
+              if n == name]
+    return values[0] if values else None
+
+
+def _histogram_sum(telemetry, name: str, **labels) -> float:
+    return sum(h["sum"] for h in telemetry.snapshot(include_spans=0)["histograms"]
+               if h["name"] == name and all(h["labels"].get(k) == v for k, v in labels.items()))
+
+
+def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: str, root: Path,
+                       traffic: "_Traffic"):
+    """Phase 19: ``INGEST_PHONES`` quantized CNN updates through
+    ``ingest_cohort(..., window=INGEST_WINDOW)`` on ``INGEST_TRACE`` against
+    the paging ``sdad`` at ``url``, every member on its own
+    ``SdaHttpClient``; then the snapshot, the 8 clerks on 8 threads
+    (``run_committee``), each reading its paged job through the prefetch
+    pipeline, and the recipient's paged reveal, which folds each mask range
+    as it arrives, one K2 launch per range of at least 2^22 seed x dim
+    elements. Held to: the reveal against numpy's sum mod p; K2 launched
+    once per such range, on the reveal's own thread, and bit-identical to its
+    plain version at each fold's shape; every job and the result read in
+    more than one range; no live row handed to the service before its
+    arrival less the slack, every churned row after the last live row,
+    ``IngestReport.churned`` equal to the trace's churn count; the backlog
+    within its bound; and the requests counted here equal to the server's
+    summed ``sda_http_requests_total``. Returns ``(k2 launches, k2
+    max_abs_err, served requests)``."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import telemetry
+    from sda_tpu_torch.client import SdaClient, ingest_cohort, run_committee
+    from sda_tpu_torch.client.ingest import arrival_slack_s, plan_arrivals
+    from sda_tpu_torch.crypto import Keystore, masking
+    from sda_tpu_torch.crypto.masking import ChaChaMasker
+    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.protocol import (
+        Aggregation,
+        AggregationId,
+        ChaChaMasking,
+        SodiumEncryptionScheme,
+    )
+    from sda_tpu_torch.rest import SdaHttpClient, TokenStore, wire
+    from sda_tpu_torch.utils.arrivals import ArrivalTrace
+
+    rng = np.random.default_rng(seed + 19)
+    scheme, values = _sealed_updates(dev, rng, INGEST_PHONES)
+    p, dim = scheme.prime_modulus, len(values[0])
+    want = np.stack(values).sum(axis=0) % p
+    threshold = ChaChaMasker.DEVICE_COMBINE_THRESHOLD
+    trace = ArrivalTrace.from_text(INGEST_TRACE)
+    schedule = plan_arrivals(trace, {"index": 0, "t": 0.0}, INGEST_PHONES)
+    slack = arrival_slack_s()
+    consumer = threading.current_thread()
+
+    folds = []
+    real_combine = masking.combine_masks_device
+
+    def timed_combine(seeds, *args, **kwargs):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        out = real_combine(seeds, *args, **kwargs)
+        events[1].record()
+        folds.append((events, np.asarray(seeds), threading.current_thread() is consumer))
+        return out
+
+    def client(name):
+        keystore = Keystore(root / name)
+        service = SdaHttpClient(url, TokenStore(root / name))
+        return SdaClient(SdaClient.new_agent(keystore), keystore, service, device=dev)
+
+    # which slot each built participation holds, and when each upload left
+    slot_of = {id(v): s for s, v in enumerate(values)}
+    slots, uploads = {}, []
+    lock = threading.Lock()
+
+    def recorded(phone):
+        real_build, real_upload = phone.new_participations, phone.upload_participations
+
+        def build(vals, aggregation_id, **kwargs):
+            parts = real_build(vals, aggregation_id, **kwargs)
+            with lock:
+                slots.update((part.id, slot_of[id(v)]) for v, part in zip(vals, parts))
+            return parts
+
+        def upload(parts):
+            t = time.perf_counter()
+            real_upload(parts)
+            with lock:
+                uploads.append((t, [slots[part.id] for part in parts]))
+
+        phone.new_participations, phone.upload_participations = build, upload
+        return phone
+
+    seconds = {}
+    prior_depth = os.environ.get("SDA_PREFETCH_DEPTH")
+    os.environ["SDA_PREFETCH_DEPTH"] = str(INGEST_PREFETCH_DEPTH)
+    torch.cuda.synchronize()
+    chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
+    telemetry.reset()
+    traffic.install()
+    masking.combine_masks_device = timed_combine
+    try:
+        t_wall = time.perf_counter()
+        recipient = client("recipient")
+        recipient.upload_agent()
+        recipient_key = recipient.new_encryption_key()
+        recipient.upload_encryption_key(recipient_key)
+        clerks = [client(f"clerk{i}") for i in range(SEALED_CLERKS)]
+        for clerk in clerks:
+            clerk.upload_agent()
+            clerk.upload_encryption_key(clerk.new_encryption_key())
+        aggregation = Aggregation(
+            id=AggregationId.random(), title="ingest round", vector_dimension=dim, modulus=p,
+            recipient=recipient.agent.id, recipient_key=recipient_key,
+            masking_scheme=ChaChaMasking(modulus=p, dimension=dim, seed_bitsize=32 * SEED_WORDS),
+            committee_sharing_scheme=scheme,
+            recipient_encryption_scheme=SodiumEncryptionScheme(),
+            committee_encryption_scheme=SodiumEncryptionScheme())
+        recipient.upload_aggregation(aggregation)
+        recipient.begin_aggregation(aggregation.id, chosen_clerks=[c.agent.id for c in clerks])
+        phones = [recorded(client(f"phone{i}")) for i in range(INGEST_IDENTITIES)]
+        for phone in phones:
+            phone.upload_agent()
+        seconds["setup_s"] = time.perf_counter() - t_wall
+
+        t0 = time.perf_counter()
+        cursor = {"index": 0, "t": 0.0, "t0": time.perf_counter()}
+        report = ingest_cohort(phones, values, aggregation.id, trace=trace, cursor=cursor,
+                               window=INGEST_WINDOW)
+        seconds["ingest_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        snapshot_id = recipient.end_aggregation(aggregation.id)
+        seconds["snapshot_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        jobs = run_committee(clerks)
+        seconds["clerking_s"] = time.perf_counter() - t0
+        clerk_overlap = _gauge_value(telemetry, "sda_clerk_overlap_efficiency")
+        t0 = time.perf_counter()
+        out = recipient.reveal_aggregation(aggregation.id)
+        seconds["reveal_s"] = time.perf_counter() - t0
+        seconds["wall_s"] = time.perf_counter() - t_wall
+        reveal_overlap = _gauge_value(telemetry, "sda_reveal_overlap_efficiency")
+    finally:
+        masking.combine_masks_device = real_combine
+        traffic.remove()
+        if prior_depth is None:
+            os.environ.pop("SDA_PREFETCH_DEPTH", None)
+        else:
+            os.environ["SDA_PREFETCH_DEPTH"] = prior_depth
+    launches, recoveries = chacha_cuda.launches, chacha_cuda.slack_recoveries
+    torch.cuda.synchronize()
+    with urllib.request.urlopen(url + "/v1/metrics", timeout=60) as resp:
+        served = _prometheus_sum(resp.read().decode("utf-8"), "sda_http_requests_total")
+
+    for stage in ("plan", "build", "upload"):
+        seconds[stage] = _histogram_sum(telemetry, "sda_ingest_stage_seconds", stage=stage)
+    job_ranges = {key: n for (kind, key), n in traffic.ranges.items() if kind == "chunks"}
+    mask_ranges = traffic.ranges.get(("result/masks", str(snapshot_id)), 0)
+    clerk_ranges = traffic.ranges.get(("result/clerks", str(snapshot_id)), 0)
+    fold_rows = [int(seeds.shape[0]) for _, seeds, _ in folds]
+    implied = sum(1 for rows in fold_rows if rows * dim >= threshold)
+    live_uploads = [(t, s) for t, batch in uploads for s in batch if not schedule[s].churned]
+    churned_uploads = [t for t, batch in uploads for s in batch if schedule[s].churned]
+    early = [s for t, s in live_uploads if t < cursor["t0"] + schedule[s].at - slack - 1e-9]
+    exact = bool(np.array_equal(out.positive().values, want))
+    checks = {
+        "sum": exact,
+        "k2_per_mask_range": launches - recoveries == implied == mask_ranges == len(folds),
+        "folds_on_consumer": all(on_consumer for _, _, on_consumer in folds),
+        "jobs_paged": len(job_ranges) == SEALED_CLERKS and min(job_ranges.values()) > 1,
+        "result_paged": mask_ranges > 1 and clerk_ranges > 1,
+        "every_row_once": sorted(s for _, batch in uploads for s in batch)
+        == list(range(INGEST_PHONES)),
+        "no_early_release": not early,
+        "churned_last": bool(churned_uploads) and min(churned_uploads)
+        >= max(t for t, _ in live_uploads),
+        "churn_count": report.churned == sum(e.churned for e in schedule),
+        "backlog_bound": report.max_backlog_seen <= 4 * INGEST_WINDOW,
+        "jobs_done": jobs == SEALED_CLERKS,
+        "metrics_count_requests": served == traffic.counts["requests"],
+    }
+    _line("ingest round", phones=INGEST_PHONES, identities=INGEST_IDENTITIES, clerks=SEALED_CLERKS,
+          dim=dim, modulus=p,
+          scheme={"k": scheme.secret_count, "t": scheme.privacy_threshold, "n": scheme.share_count},
+          trace=INGEST_TRACE, last_arrival_s=schedule[-1].at, window=INGEST_WINDOW,
+          slack_s=slack, prefetch_depth=INGEST_PREFETCH_DEPTH, server_env=INGEST_SERVER_ENV,
+          **seconds, windows=report.windows, batches=report.batches,
+          deferred_batches=report.deferred_batches, churned=report.churned,
+          max_backlog_seen=report.max_backlog_seen, max_lag_s=report.max_lag_s,
+          sda_clerk_overlap_efficiency=clerk_overlap,
+          sda_reveal_overlap_efficiency=reveal_overlap,
+          job_ranges=sorted(job_ranges.values()), mask_ranges=mask_ranges,
+          clerk_result_ranges=clerk_ranges, fold_rows=fold_rows,
+          mask_combine_s=[a.elapsed_time(b) / 1e3 for (a, b), _, _ in folds],
+          **traffic.counts, served_requests=served, wire=wire.mode(),
+          k2_launches=launches, implied_folds=implied, slack_recoveries=recoveries, exact=exact,
+          checks=checks, card=card)
+    if not all(checks.values()):
+        raise AssertionError(f"ingest round: a check failed: {checks}")
+    k2_err = 0
+    for ix, (events, seeds, _) in enumerate(folds):
+        k2_err = max(k2_err, _k2_at_fold(card, dev, [(events, seeds)], dim, p, sm_clocks_per_ms,
+                                         launches, f"ingest round range {ix}"))
+    return launches, k2_err, served
+
+
+def paillier_round_phase(card: str, dev, seed: int, url: str, root: Path, traffic: "_Traffic",
+                         served_before: float) -> None:
+    """Phase 20: the Packed Paillier round against phase 19's ``sdad``:
+    ``PAILLIER_COHORT`` participants of ``PAILLIER_DIM`` field values under
+    ``FullMasking``, their masks encrypted to the recipient's
+    ``PAILLIER_KEY_BITS``-bit Paillier key from
+    ``new_paillier_encryption_key`` (``PAILLIER_PACKING``), phase 14's packed
+    Shamir sharing, 8 clerks. The server's snapshot multiplies the mask
+    ciphertexts into one, and the recipient decrypts that one. Held to: the
+    reveal against numpy's sum mod p, exactly one mask encryption in the
+    (paged) snapshot result, no K2 launch (Full masking folds on the host),
+    and the server's request count."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.client import SdaClient, run_committee
+    from sda_tpu_torch.crypto import Keystore
+    from sda_tpu_torch.models import QuantizationSpec
+    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.protocol import (
+        Aggregation,
+        AggregationId,
+        FullMasking,
+        PackedPaillierEncryptionScheme,
+        SodiumEncryptionScheme,
+    )
+    from sda_tpu_torch.rest import SdaHttpClient, TokenStore
+
+    rng = np.random.default_rng(seed + 20)
+    _, scheme = QuantizationSpec.fitted(FEDAVG_FRAC_BITS, FEDAVG_CLIP, SEALED_COHORT)
+    p = scheme.prime_modulus
+    values = rng.integers(0, p, size=(PAILLIER_COHORT, PAILLIER_DIM), dtype=np.int64)
+    want = values.sum(axis=0) % p
+    pscheme = PackedPaillierEncryptionScheme(**PAILLIER_PACKING)
+
+    def client(name):
+        keystore = Keystore(root / name)
+        service = SdaHttpClient(url, TokenStore(root / name))
+        return SdaClient(SdaClient.new_agent(keystore), keystore, service, device=dev)
+
+    seconds = {}
+    requests_before = traffic.counts["requests"]
+    torch.cuda.synchronize()
+    chacha_cuda.launches = 0
+    traffic.install()
+    try:
+        t_wall = time.perf_counter()
+        recipient = client("recipient")
+        recipient.upload_agent()
+        t0 = time.perf_counter()
+        recipient_key = recipient.new_paillier_encryption_key(PAILLIER_KEY_BITS)
+        seconds["keygen_s"] = time.perf_counter() - t0
+        recipient.upload_encryption_key(recipient_key)
+        clerks = [client(f"clerk{i}") for i in range(SEALED_CLERKS)]
+        for clerk in clerks:
+            clerk.upload_agent()
+            clerk.upload_encryption_key(clerk.new_encryption_key())
+        aggregation = Aggregation(
+            id=AggregationId.random(), title="paillier round", vector_dimension=PAILLIER_DIM,
+            modulus=p, recipient=recipient.agent.id, recipient_key=recipient_key,
+            masking_scheme=FullMasking(p), committee_sharing_scheme=scheme,
+            recipient_encryption_scheme=pscheme,
+            committee_encryption_scheme=SodiumEncryptionScheme())
+        recipient.upload_aggregation(aggregation)
+        # the server also holds phase 19's keyed agents: name this committee
+        recipient.begin_aggregation(aggregation.id, chosen_clerks=[c.agent.id for c in clerks])
+        participants = [client(f"participant{i}") for i in range(PAILLIER_COHORT)]
+        for participant in participants:
+            participant.upload_agent()
+        t0 = time.perf_counter()
+        for participant, row in zip(participants, values):
+            participant.participate(row, aggregation.id)
+        seconds["participate_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        snapshot_id = recipient.end_aggregation(aggregation.id)
+        seconds["snapshot_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_committee(clerks)
+        seconds["clerking_s"] = time.perf_counter() - t0
+        result = recipient.service.get_snapshot_result(recipient.agent, aggregation.id, snapshot_id)
+        t0 = time.perf_counter()
+        out = recipient.reveal_aggregation(aggregation.id)
+        seconds["reveal_s"] = time.perf_counter() - t0
+        seconds["wall_s"] = time.perf_counter() - t_wall
+    finally:
+        traffic.remove()
+    with urllib.request.urlopen(url + "/v1/metrics", timeout=60) as resp:
+        served = _prometheus_sum(resp.read().decode("utf-8"), "sda_http_requests_total")
+    exact = bool(np.array_equal(out.positive().values, want))
+    masks = result.mask_encryption_count if result.is_paged() else len(result.recipient_encryptions)
+    checks = {"sum": exact, "one_combined_mask": masks == 1, "no_k2": chacha_cuda.launches == 0,
+              # phase 19's own metrics read is the one request not counted here
+              "metrics_count_requests": served == traffic.counts["requests"] + 1}
+    _line("paillier round", participants=PAILLIER_COHORT, clerks=SEALED_CLERKS, dim=PAILLIER_DIM,
+          modulus=p, key_bits=PAILLIER_KEY_BITS, packing=PAILLIER_PACKING,
+          scheme={"k": scheme.secret_count, "t": scheme.privacy_threshold, "n": scheme.share_count},
+          **seconds, paged_result=result.is_paged(), mask_encryptions=masks,
+          requests=traffic.counts["requests"] - requests_before,
+          served_requests=served - served_before - 1,
+          launches={"chacha20": chacha_cuda.launches}, exact=exact, checks=checks, card=card)
+    if not all(checks.values()):
+        raise AssertionError(f"paillier round: a check failed: {checks}")
+
+
+def ingest_paillier_phases(card: str, dev, seed: int, sm_clocks_per_ms: float):
+    """Phases 19 and 20 against one ``python -m sda_tpu_torch.cli.sdad
+    --sqlite <tmp>/sda.db httpd`` (``--file`` where this Python has no
+    ``sqlite3``) started with ``INGEST_SERVER_ENV``. Returns phase 19's
+    ``(k2 launches, k2 max_abs_err)``."""
+    import tempfile
+
+    traffic = _Traffic()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        proc, url = _start_sdad(_round_store(tmp), tmp / "sdad.log", env=INGEST_SERVER_ENV)
+        try:
+            launches, k2_err, served = ingest_round_phase(card, dev, seed, sm_clocks_per_ms, url,
+                                                          tmp / "ingest", traffic)
+            paillier_round_phase(card, dev, seed, url, tmp / "paillier", traffic, served)
+        finally:
+            _stop(proc)
     return launches, k2_err
 
 
@@ -3046,6 +3474,8 @@ def main(argv=None) -> int:
     rest_k2, rest_k2_err = rest_round_phase(card, dev, args.seed, sm_clocks_per_ms)
     # -- 18. the scale-out plane: a tiered round over two sharded frontends --------
     tier_k2, tier_k2_err = tier_round_phase(card, dev, args.seed, sm_clocks_per_ms)
+    # -- 19. arrival-driven ingest, paged reads; 20. the Packed Paillier round -----
+    ingest_k2, ingest_k2_err = ingest_paillier_phases(card, dev, args.seed, sm_clocks_per_ms)
 
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",
@@ -3067,9 +3497,9 @@ def main(argv=None) -> int:
         "source": "sda_tpu_torch/csrc/chacha20.cu",
         "replaces": "sda_tpu/ops/chacha_pallas.py:47",
         "launches": (masked_launches["chacha20"] + fabric_launches["chacha20"] + fedavg_k2 + model_k2
-                     + sealed_k2 + trainer_k2 + rest_k2 + tier_k2),
+                     + sealed_k2 + trainer_k2 + rest_k2 + tier_k2 + ingest_k2),
         "max_abs_err": max(k2_err, fabric_k2_err, fedavg_k2_err, model_k2_err, sealed_k2_err,
-                           trainer_k2_err, rest_k2_err, tier_k2_err),
+                           trainer_k2_err, rest_k2_err, tier_k2_err, ingest_k2_err),
         "ms": kernel2_ms,
         "plain_ms": plain2_ms,
         "bound_ms": max(bytes2_ms, ops2_ms),

@@ -5,7 +5,9 @@
 ``CryptoModule``, as the SDA client crate's lib.rs:39-56 does. ``device`` is
 where the recipient's large ChaCha mask combine runs (CUDA unless the caller
 asks for the CPU). ``tiers`` provisions and runs a tiered round (share or
-reveal promotion). Ingest and the prefetch thread are not ported.
+reveal promotion). ``ingest_cohort`` drives a cohort through the
+arrival-driven plan/build/upload pipeline (``ingest``), and paged jobs and
+results are read through the bounded prefetch pipeline (``prefetch``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from ..crypto import CryptoModule, Keystore
 from ..protocol import Agent, AgentId, SdaService
 from .clerk import Clerking
 from .committee import run_committee
+from .ingest import IngestReport, ingest_cohort, plan_arrivals
 from .participate import Participating
 from .profile import Maintenance
 from .receive import Receiving, RecipientOutput
@@ -47,6 +50,9 @@ class SdaClient(Participating, Clerking, Receiving, Maintenance):
 
 __all__ = [
     "SdaClient",
+    "IngestReport",
+    "ingest_cohort",
+    "plan_arrivals",
     "Participating",
     "Clerking",
     "Receiving",

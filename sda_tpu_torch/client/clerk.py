@@ -9,27 +9,41 @@ plaintext vectors (the accumulating combiner clerk.rs:71-73 suggests).
 
 Large jobs arrive PAGED: the server returns metadata only
 (``total_encryptions`` + suggested ``chunk_size``) and the clerk pulls the
-ciphertext column range by range via ``get_clerking_job_chunk``, one range
-after the other: the reference's prefetch thread, which overlaps the next
-range's download with the current one's decrypt, is not ported (its folds
-are byte-identical either way).
+ciphertext column range by range via ``get_clerking_job_chunk``. Download
+and compute overlap in a bounded pipeline — up to ``SDA_PREFETCH_DEPTH``
+(default 3) range requests in flight while this thread decrypts and folds
+the current range (``client/prefetch.py``) — so wall time approaches
+max(download, decrypt+combine) instead of their sum, with at most depth+1
+ranges resident. ``sda_clerk_overlap_efficiency`` gauges how much of the
+download the last paged job hid behind its compute.
 
-On a derived tier child under share promotion the combined column is not
-sealed to the recipient: the clerk expands it by its Lagrange
-coefficients and submits it to the parent aggregation as a tagged
-participation (``_promote_share_column``), keeping the column cached for
-an epoch-1 reissue after a peer's death (``reshare_tier_child``).
+Under a Packed Paillier recipient scheme the combined column is lifted to
+canonical nonnegative residues before it is sealed (packing holds
+nonnegative values only). On a derived tier child under share promotion
+the combined column is not sealed to the recipient: the clerk expands it by
+its Lagrange coefficients and submits it to the parent aggregation as a
+tagged participation (``_promote_share_column``), keeping the column cached
+for an epoch-1 reissue after a peer's death (``reshare_tier_child``).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 from .. import telemetry
+from ..ops.modular import positive
 from ..ops.shamir import reshare_coefficients, reshare_column
-from ..protocol import ClerkingResult, SdaError, ServerError, TierReshare
+from ..protocol import (
+    ClerkingResult,
+    PackedPaillierEncryptionScheme,
+    SdaError,
+    ServerError,
+    TierReshare,
+)
 from ..protocol import tiers as tiers_mod
 from ..utils.metrics import get_metrics
+from . import prefetch
 from .keys import VerifiedKeys
 
 #: pipeline stage latency — one histogram per stage
@@ -39,17 +53,6 @@ _STAGE_HELP = "clerk job pipeline stage latency by stage"
 #: coefficients + build and submit the tagged parent participation)
 _RESHARE_SERIES = "sda_tier_reshare_seconds"
 _RESHARE_HELP = "clerk share-promotion latency (column expand + submit)"
-
-
-def iter_ranges(fetch, total: int):
-    """Yield the ranges ``fetch(start)`` returns for ``[0, total)`` in
-    order; the cursor advances by the length the server actually returned,
-    so a server configured with another chunk size stays in lockstep."""
-    start = 0
-    while start < total:
-        chunk = fetch(start)
-        start += len(chunk)
-        yield chunk
 
 
 class Clerking(VerifiedKeys):
@@ -101,25 +104,41 @@ class Clerking(VerifiedKeys):
                 done += 1
         return done
 
-    def _iter_job_chunks(self, job):
-        """Yield the job's ciphertext column as decrypt-ready blocks:
-        monolithic jobs slice the in-memory column by ``DECRYPT_CHUNK``,
-        paged jobs fetch the column range by range."""
+    def _iter_job_chunks(self, job, stage_times: dict):
+        """Yield the job's ciphertext column as decrypt-ready blocks.
+
+        Monolithic jobs slice the in-memory column by ``DECRYPT_CHUNK``.
+        Paged jobs (``is_paged()`` — column left server-side) run the
+        download stage of the pipeline: up to ``SDA_PREFETCH_DEPTH``
+        range requests in flight while the consumer decrypts the current
+        chunk (client/prefetch.py ``iter_chunks``). The range cursor
+        advances by the length the server actually returned, so a server
+        configured with a different chunk size stays in lockstep; the
+        download seconds add up in ``stage_times["download"]``.
+        """
         if not job.is_paged():
             for start in range(0, len(job.encryptions), self.DECRYPT_CHUNK):
                 yield job.encryptions[start : start + self.DECRYPT_CHUNK]
             return
 
         total = job.total_encryptions
+        if total <= 0:
+            return
+
         download_hist = telemetry.histogram(
             _STAGE_SERIES, _STAGE_HELP, stage="download"
         )
+        # fetches run on prefetch workers, several at once
+        lock = threading.Lock()
 
         def fetch(start: int):
             t0 = time.perf_counter()
             with telemetry.span("clerk.download", start=start):
                 chunk = self.service.get_clerking_job_chunk(self.agent, job.id, start)
-            download_hist.observe(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            download_hist.observe(dt)
+            with lock:
+                stage_times["download"] += dt
             if chunk is None:
                 raise SdaError(f"clerking job {job.id} disappeared mid-download")
             if not chunk:
@@ -128,7 +147,7 @@ class Clerking(VerifiedKeys):
                 )
             return chunk
 
-        yield from iter_ranges(fetch, total)
+        yield from prefetch.iter_chunks(fetch, total)
 
     def process_clerking_job(self, job) -> ClerkingResult:
         """Decrypt + combine the job's column and seal it to the
@@ -169,14 +188,18 @@ class Clerking(VerifiedKeys):
         # (signed-remainder representatives can differ; reconstruction
         # reduces mod p and the reveal lifts via positive())
         combiner = self.crypto.new_share_combiner(aggregation.committee_sharing_scheme)
+        stage_times = {"download": 0.0, "decrypt": 0.0, "combine": 0.0}
         combined = None
-        for block in self._iter_job_chunks(job):
+        t_wall0 = time.perf_counter()
+        for block in self._iter_job_chunks(job, stage_times):
             t0 = time.perf_counter()
             with metrics.phase("clerk.decrypt"), telemetry.span(
                 "clerk.decrypt", rows=len(block)
             ):
                 share_vectors = decryptor.decrypt_batch(block)
-            decrypt_hist.observe(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            decrypt_hist.observe(dt)
+            stage_times["decrypt"] += dt
             t0 = time.perf_counter()
             with metrics.phase("clerk.combine"), telemetry.span("clerk.combine"):
                 partial = combiner.combine(share_vectors)
@@ -185,12 +208,37 @@ class Clerking(VerifiedKeys):
                     if combined is None
                     else combiner.combine([combined, partial])
                 )
-            combine_hist.observe(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            combine_hist.observe(dt)
+            stage_times["combine"] += dt
+        t_wall = time.perf_counter() - t_wall0
+        if stage_times["download"] > 0:
+            # how much of the download cost the pipeline hid behind
+            # compute: 1.0 = fully overlapped, 0.0 = fully serial
+            overlap = (
+                stage_times["download"]
+                + stage_times["decrypt"]
+                + stage_times["combine"]
+                - t_wall
+            ) / stage_times["download"]
+            telemetry.gauge(
+                "sda_clerk_overlap_efficiency",
+                "fraction of download time hidden behind decrypt+combine "
+                "by the paged-job pipeline (last job)",
+            ).set(min(1.0, max(0.0, overlap)))
         if combined is None:  # empty snapshot cut
             combined = combiner.combine([])
         return aggregation, committee, combined
 
     def _seal_result(self, job, aggregation, combined) -> ClerkingResult:
+        if isinstance(
+            aggregation.recipient_encryption_scheme, PackedPaillierEncryptionScheme
+        ):
+            # Paillier packing is nonnegative-only; lift the signed
+            # residues (truncated-remainder semantics) to canonical form —
+            # congruent mod m, so reconstruction is unchanged
+            combined = positive(combined, aggregation.modulus)
+
         # fetch + verify recipient key (cached across jobs — keys.py
         # VerifiedKeys), re-encrypt the combined vector
         recipient_key = self._fetch_verified_key(

@@ -1,5 +1,4 @@
-"""Identity maintenance tasks (copy of ``sda_tpu/client/profile.py`` without
-the Paillier key, which the port does not have yet)."""
+"""Identity maintenance tasks (copy of ``sda_tpu/client/profile.py``)."""
 
 from __future__ import annotations
 
@@ -15,6 +14,10 @@ class Maintenance:
     def new_encryption_key(self):
         """Create a new encryption keypair in the keystore; returns its id."""
         return self.crypto.new_encryption_key()
+
+    def new_paillier_encryption_key(self, modulus_bits: int = 2048):
+        """Create a Paillier keypair in the keystore; returns its id."""
+        return self.crypto.new_paillier_encryption_key(modulus_bits)
 
     def upload_encryption_key(self, key_id) -> None:
         """Sign the public key with the agent's signature key and upload."""

@@ -12,16 +12,23 @@ The mask combine is where the device comes in: the crypto module's ChaCha
 masker expands and folds a large cohort's seeds on its device (see
 ``crypto/masking.py``). Large snapshot results arrive PAGED: above the
 server's threshold ``get_snapshot_result`` answers with counts only, and the
-recipient fetches the mask column and the clerk results range by range, one
-range after the other (the reference overlaps them with a prefetch thread,
-not ported; both give byte-identical folds). Small results go through the
-same accumulator as a single chunk. The tier promoter's
-``combined_snapshot_mask`` folds a snapshot's mask column alone through
-that accumulator, so a large sub-cohort's fold reaches the device too.
+recipient streams the mask column and the clerk results range by range.
+Download and compute overlap in a bounded pipeline — up to
+``SDA_PREFETCH_DEPTH`` range requests in flight (``client/prefetch.py``)
+while this thread decrypts the current range and folds its masks into a
+streaming modular accumulator (``MaskCombiner.accumulator``), so every
+range of a ChaCha column large enough for the device is one fold on it, and
+no fold runs on a prefetch worker. Small results go through the same
+accumulator as a single chunk, so both paths share one fold semantics.
+``sda_reveal_overlap_efficiency`` gauges how much of a paged reveal's
+download was hidden behind its compute. The tier promoter's
+``combined_snapshot_mask`` reads a snapshot's mask column alone through
+the same pipeline and accumulator (it sets no gauge).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 
@@ -30,7 +37,7 @@ import numpy as np
 from .. import telemetry
 from ..ops.modular import positive
 from ..protocol import AdditiveSharing, Committee, SdaError, Snapshot, SnapshotId
-from .clerk import iter_ranges
+from . import prefetch
 
 
 def require_reconstructible(scheme, present: int, committee_size: int) -> None:
@@ -64,24 +71,39 @@ _STAGE_SERIES = "sda_reveal_stage_seconds"
 _STAGE_HELP = "recipient reveal pipeline stage latency by stage"
 
 
-def _iter_result_chunks(fetch, total: int, what: str):
-    """Yield a paged snapshot-result column as decrypt-ready blocks;
+def _iter_result_chunks(fetch, total: int, what: str, stage_times: dict):
+    """Yield a paged snapshot-result column as decrypt-ready blocks.
+
     ``fetch(start)`` is the range read (``get_snapshot_result_masks`` or
-    ``get_snapshot_result_clerks``)."""
+    ``get_snapshot_result_clerks``); chunks stream through the shared
+    bounded pipeline (client/prefetch.py ``iter_chunks``): up to
+    ``SDA_PREFETCH_DEPTH`` range requests in flight while the consumer
+    decrypts the current chunk. The range cursor advances by the length
+    the server actually returned, so a server configured with a
+    different chunk size stays in lockstep.
+    """
+    if total <= 0:
+        return
+
     download_hist = telemetry.histogram(_STAGE_SERIES, _STAGE_HELP, stage="download")
+    # fetches run on prefetch workers, several at once
+    lock = threading.Lock()
 
     def timed_fetch(start: int):
         t0 = time.perf_counter()
         with telemetry.span("reveal.download", what=what, start=start):
             chunk = fetch(start)
-        download_hist.observe(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        download_hist.observe(dt)
+        with lock:
+            stage_times["download"] += dt
         if chunk is None:
             raise SdaError(f"snapshot result {what} disappeared mid-download")
         if not chunk:
             raise SdaError(f"snapshot result {what} truncated at {start}/{total}")
         return chunk
 
-    yield from iter_ranges(timed_fetch, total)
+    yield from prefetch.iter_chunks(timed_fetch, total)
 
 
 @dataclass
@@ -192,6 +214,7 @@ class Receiving:
         decryptor = self.crypto.new_share_decryptor(
             aggregation.recipient_key, aggregation.recipient_encryption_scheme
         )
+        stage_times = {"download": 0.0}
         if result.is_paged():
             def fetch_masks(start):
                 return self.service.get_snapshot_result_masks(
@@ -202,7 +225,7 @@ class Receiving:
                 None
                 if result.mask_encryption_count is None
                 else _iter_result_chunks(
-                    fetch_masks, result.mask_encryption_count, "masks"
+                    fetch_masks, result.mask_encryption_count, "masks", stage_times
                 )
             )
         else:
@@ -248,9 +271,11 @@ class Receiving:
         )
         decrypt_hist = telemetry.histogram(_STAGE_SERIES, _STAGE_HELP, stage="decrypt")
         fold_hist = telemetry.histogram(_STAGE_SERIES, _STAGE_HELP, stage="fold")
+        stage_times = {"download": 0.0, "decrypt": 0.0, "fold": 0.0, "reconstruct": 0.0}
+        t_wall0 = time.perf_counter()
 
         # both wire shapes feed one streaming machinery: paged results
-        # arrive as range reads, bulk results as a single chunk
+        # arrive as pipelined range reads, bulk results as a single chunk
         if result.is_paged():
             def fetch_masks(start):
                 return self.service.get_snapshot_result_masks(
@@ -265,10 +290,12 @@ class Receiving:
             mask_chunks = (
                 None
                 if result.mask_encryption_count is None  # snapshot stored no mask
-                else _iter_result_chunks(fetch_masks, result.mask_encryption_count, "masks")
+                else _iter_result_chunks(
+                    fetch_masks, result.mask_encryption_count, "masks", stage_times
+                )
             )
             clerk_chunks = _iter_result_chunks(
-                fetch_clerks, result.clerk_result_count, "clerk results"
+                fetch_clerks, result.clerk_result_count, "clerk results", stage_times
             )
         else:
             mask_chunks = (
@@ -279,7 +306,8 @@ class Receiving:
             clerk_chunks = iter([result.clerk_encryptions])
 
         # decrypt + fold masks chunk by chunk: peak memory is one chunk of
-        # ciphertexts and one combined partial
+        # ciphertexts (plus the prefetched next ones) and one combined
+        # partial — never the whole cohort's mask column
         if mask_chunks is None:
             mask = np.empty(0, dtype=np.int64)
         else:
@@ -290,11 +318,15 @@ class Receiving:
                 t0 = time.perf_counter()
                 with telemetry.span("reveal.decrypt", what="masks", rows=len(block)):
                     decrypted = decryptor.decrypt_batch(block)
-                decrypt_hist.observe(time.perf_counter() - t0)
+                dt = time.perf_counter() - t0
+                decrypt_hist.observe(dt)
+                stage_times["decrypt"] += dt
                 t0 = time.perf_counter()
                 with telemetry.span("reveal.fold"):
                     accumulator.fold(decrypted)
-                fold_hist.observe(time.perf_counter() - t0)
+                dt = time.perf_counter() - t0
+                fold_hist.observe(dt)
+                stage_times["fold"] += dt
             mask = accumulator.finish()
 
         # decrypt the clerk results into (committee index, share vector)
@@ -311,7 +343,9 @@ class Receiving:
             t0 = time.perf_counter()
             with telemetry.span("reveal.decrypt", what="clerks", rows=len(block)):
                 share_vectors = decryptor.decrypt_batch([cr.encryption for cr in block])
-            decrypt_hist.observe(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            decrypt_hist.observe(dt)
+            stage_times["decrypt"] += dt
             indexed_shares.extend(
                 (clerk_positions[cr.clerk], shares)
                 for cr, shares in zip(block, share_vectors)
@@ -330,6 +364,7 @@ class Receiving:
         if all(len(shares) == 0 for _, shares in indexed_shares):
             # an empty snapshot cut: the aggregate over the empty set is
             # the zero vector
+            self._record_reveal_pipeline(stage_times, time.perf_counter() - t_wall0)
             return RecipientOutput(
                 modulus=aggregation.modulus,
                 values=np.zeros(aggregation.vector_dimension, dtype=np.int64),
@@ -343,7 +378,27 @@ class Receiving:
             masked_output = reconstructor.reconstruct(indexed_shares)
             unmasker = self.crypto.new_secret_unmasker(aggregation.masking_scheme)
             output = unmasker.unmask(mask, masked_output)
-        telemetry.histogram(_STAGE_SERIES, _STAGE_HELP, stage="reconstruct").observe(
-            time.perf_counter() - t0
-        )
+        dt = time.perf_counter() - t0
+        telemetry.histogram(_STAGE_SERIES, _STAGE_HELP, stage="reconstruct").observe(dt)
+        stage_times["reconstruct"] += dt
+        self._record_reveal_pipeline(stage_times, time.perf_counter() - t_wall0)
         return RecipientOutput(modulus=aggregation.modulus, values=output)
+
+    @staticmethod
+    def _record_reveal_pipeline(stage_times: dict, t_wall: float) -> None:
+        """Gauge how much download cost the prefetch pipeline hid behind
+        compute: 1.0 = fully overlapped, 0.0 = fully serial. Only paged
+        reveals accumulate download time (bulk results ride the one
+        ``get_snapshot_result`` call), so the gauge tracks paged reveals.
+        """
+        if stage_times["download"] <= 0:
+            return
+        compute = (
+            stage_times["decrypt"] + stage_times["fold"] + stage_times["reconstruct"]
+        )
+        overlap = (stage_times["download"] + compute - t_wall) / stage_times["download"]
+        telemetry.gauge(
+            "sda_reveal_overlap_efficiency",
+            "fraction of download time hidden behind decrypt+fold by the "
+            "paged-result reveal pipeline (last reveal)",
+        ).set(min(1.0, max(0.0, overlap)))

@@ -40,6 +40,14 @@ class CryptoModule:
         self.keystore.put_encryption_keypair(key_id, pair)
         return key_id
 
+    def new_paillier_encryption_key(self, modulus_bits: int = 2048) -> EncryptionKeyId:
+        """Generate + store a Paillier keypair (PackedPaillier extension);
+        returns its id. 2048-bit modulus for real use."""
+        pair = encryption.generate_paillier_keypair(modulus_bits)
+        key_id = EncryptionKeyId.random()
+        self.keystore.put_encryption_keypair(key_id, pair)
+        return key_id
+
     def new_signature_key(self) -> Labelled:
         """Generate + store an Ed25519 keypair; returns Labelled[id, vk]."""
         pair = signing.generate_signature_keypair()

@@ -1,5 +1,5 @@
-"""File-based client store and keystore (copy of ``sda_tpu/crypto/keystore.py``
-without the Paillier keypair, which the port does not have yet).
+"""File-based client store and keystore (copy of ``sda_tpu/crypto/keystore.py``,
+Paillier keypairs included).
 
 The SDA client's file store (client-store/src/file.rs): one JSON file per
 object under a directory, plus the alias indirection (``alias -> id ->
@@ -13,14 +13,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ..protocol import B32
-from ..protocol.schemes import (
-    PAILLIER_NOT_PORTED,
-    EncryptionKey,
-    SigningKey,
-    VerificationKey,
-    _untag,
-)
+from ..protocol import B32, PaillierEncryptionKey
+from ..protocol.schemes import EncryptionKey, SigningKey, VerificationKey, _untag
 from ..utils.jsondir import JsonDir
 
 
@@ -55,9 +49,34 @@ class EncryptionKeypair:
     def from_json(cls, obj):
         dk = obj["dk"]
         if isinstance(dk, dict) and "Paillier" in dk:
-            raise NotImplementedError(PAILLIER_NOT_PORTED)
+            return PaillierKeypair.from_json(obj)
         return cls(
             ek=EncryptionKey.from_json(obj["ek"]), dk=DecryptionKey.from_json(obj["dk"])
+        )
+
+
+@dataclass
+class PaillierKeypair:
+    """Paillier keypair: public n, private (lam, mu) — the PackedPaillier
+    extension's key material, stored alongside sodium pairs."""
+
+    ek: "PaillierEncryptionKey"
+    lam: int
+    mu: int
+
+    def to_json(self):
+        return {
+            "ek": self.ek.to_json(),
+            "dk": {"Paillier": {"lam": str(self.lam), "mu": str(self.mu)}},
+        }
+
+    @classmethod
+    def from_json(cls, obj):
+        dk = obj["dk"]["Paillier"]
+        return cls(
+            ek=PaillierEncryptionKey.from_json(obj["ek"]),
+            lam=int(dk["lam"]),
+            mu=int(dk["mu"]),
         )
 
 

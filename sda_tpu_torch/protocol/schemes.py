@@ -1,7 +1,7 @@
 """Cryptographic scheme descriptors, their derived properties and their JSON
-codecs (copy of ``sda_tpu/protocol/schemes.py`` without the Paillier
-extension, which the port does not have yet: decoding a Paillier tag raises
-``NotImplementedError``).
+codecs (copy of ``sda_tpu/protocol/schemes.py``, the Packed Paillier
+extension included: ``PaillierEncryptionKey``, the ``Paillier`` variant of
+``Encryption`` and ``PackedPaillierEncryptionScheme``).
 
 Wire parity with the SDA protocol's crypto.rs (serde externally tagged
 enums):
@@ -21,13 +21,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from .helpers import B32, B64, Binary
-
-#: what a Paillier record raises: the extension is a later item of ROADMAP
-#: queue D
-PAILLIER_NOT_PORTED = (
-    "Paillier recipient encryption is not ported (ROADMAP queue D: Paillier "
-    "recipient encryption)"
-)
 
 
 def _tagged(tag, payload):
@@ -84,32 +77,52 @@ class _SodiumNewtype:
 
 
 class Encryption(_SodiumNewtype):
-    """A ciphertext: a sodium sealed box (crypto.rs:8-14). ``sda_tpu``'s
-    ``Paillier`` variant is not ported; decoding one raises."""
+    """A ciphertext. The SDA protocol's enum has one variant, ``Sodium``
+    (sealed box, crypto.rs:8-14); ``Paillier`` is the wire-compatible
+    extension carrying packed-Paillier blocks, tagged so external consumers
+    never misread one payload kind as the other. ``VARIANTS`` is in
+    ``sda_tpu``'s order (the binary wire's tag byte)."""
 
     INNER = Binary
-    variant = "Sodium"
-    #: ``sda_tpu``'s variant tags, in its order (the binary wire's tag byte)
     VARIANTS = ("Sodium", "Paillier")
+    __slots__ = ("variant",)
+
+    def __init__(self, inner, variant: str = "Sodium"):
+        super().__init__(inner)
+        if variant not in self.VARIANTS:
+            raise ValueError(f"unknown Encryption variant {variant!r}")
+        self.variant = variant
+
+    def to_json(self):
+        return _tagged(self.variant, self.inner.to_json())
 
     @classmethod
     def from_json(cls, obj):
         tag, payload = _untag(obj, cls.VARIANTS)
-        if tag == "Paillier":
-            raise NotImplementedError(PAILLIER_NOT_PORTED)
-        return cls(Binary.from_json(payload))
+        return cls(Binary.from_json(payload), variant=tag)
 
     @classmethod
-    def _from_wire(cls, data: bytes):
-        """Trusted bulk-decode path: wrap sealed-box bytes sliced out of a
+    def _from_wire(cls, data: bytes, variant: str):
+        """Trusted bulk-decode path: wrap ciphertext bytes sliced out of a
         validated binary frame, bypassing the isinstance-dispatching
-        constructors (hot at thousands of ciphertexts per frame). Callers
-        must pass ``bytes``."""
+        constructors (hot at thousands of ciphertexts per frame).
+        Callers must pass ``bytes`` and a tag from ``VARIANTS``."""
         inner = object.__new__(Binary)
         inner.data = data
         self = object.__new__(cls)
         self.inner = inner
+        self.variant = variant
         return self
+
+    def __eq__(self, other) -> bool:
+        return (
+            type(other) is type(self)
+            and other.inner == self.inner
+            and other.variant == self.variant
+        )
+
+    def __hash__(self) -> int:
+        return hash((type(self).__name__, self.variant, self.inner))
 
 
 class EncryptionKey(_SodiumNewtype):
@@ -119,10 +132,28 @@ class EncryptionKey(_SodiumNewtype):
 
     @classmethod
     def from_json(cls, obj):
+        # polymorphic: sodium keys are {"Sodium": b64}; Paillier public
+        # keys (the sketched PackedPaillier extension) are
+        # {"Paillier": {"n": decimal}} — both usable wherever a key goes
         tag, payload = _untag(obj, ("Sodium", "Paillier"))
         if tag == "Paillier":
-            raise NotImplementedError(PAILLIER_NOT_PORTED)
+            return PaillierEncryptionKey(int(payload["n"]))
         return cls(B32.from_json(payload))
+
+
+@dataclass(frozen=True)
+class PaillierEncryptionKey:
+    """Paillier public key: the modulus n (g is fixed to n+1)."""
+
+    n: int
+
+    def to_json(self):
+        return {"Paillier": {"n": str(self.n)}}
+
+    @classmethod
+    def from_json(cls, obj):
+        _, payload = _untag(obj, ("Paillier",))
+        return cls(int(payload["n"]))
 
 
 class Signature(_SodiumNewtype):
@@ -389,9 +420,14 @@ class AdditiveEncryptionScheme:
 
     @staticmethod
     def from_json(obj):
-        tag, _ = _untag(obj, ("Sodium", "PackedPaillier"))
+        tag, payload = _untag(obj, ("Sodium", "PackedPaillier"))
         if tag == "PackedPaillier":
-            raise NotImplementedError(PAILLIER_NOT_PORTED)
+            return PackedPaillierEncryptionScheme(
+                component_count=int(payload["component_count"]),
+                component_bitsize=int(payload["component_bitsize"]),
+                max_value_bitsize=int(payload["max_value_bitsize"]),
+                min_modulus_bitsize=int(payload["min_modulus_bitsize"]),
+            )
         return SodiumEncryptionScheme()
 
 
@@ -404,3 +440,45 @@ class SodiumEncryptionScheme(AdditiveEncryptionScheme):
 
     def to_json(self):
         return "Sodium"
+
+
+@dataclass(frozen=True)
+class PackedPaillierEncryptionScheme(AdditiveEncryptionScheme):
+    """Packed Paillier transport encryption — additively homomorphic.
+
+    The SDA protocol sketches exactly these fields (crypto.rs:164-174) and
+    names Paillier as its scale-up path; here it is implemented. Masks
+    encrypted under this scheme can be combined BY THE SERVER (ciphertext
+    multiplication), so the recipient decrypts one ciphertext per
+    component block regardless of participant count. Up to
+    ``2^(component_bitsize - max_value_bitsize)`` ciphertexts may be
+    combined before a component could carry into its neighbor.
+    """
+
+    component_count: int
+    component_bitsize: int
+    max_value_bitsize: int
+    min_modulus_bitsize: int
+
+    def __post_init__(self):
+        if self.max_value_bitsize > self.component_bitsize:
+            raise ValueError("component values larger than their slots")
+        if self.component_bitsize > 62:
+            # decrypted component sums must fit the i64 share plane
+            raise ValueError("component_bitsize must be <= 62")
+        if self.component_count * self.component_bitsize >= self.min_modulus_bitsize:
+            raise ValueError("components do not fit the plaintext space")
+
+    def batch_size(self) -> int:
+        return self.component_count
+
+    def to_json(self):
+        return _tagged(
+            "PackedPaillier",
+            {
+                "component_count": self.component_count,
+                "component_bitsize": self.component_bitsize,
+                "max_value_bitsize": self.max_value_bitsize,
+                "min_modulus_bitsize": self.min_modulus_bitsize,
+            },
+        )

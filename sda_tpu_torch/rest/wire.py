@@ -36,9 +36,8 @@ oversized frame raises ``WireError`` (a ``ValueError``) before any
 object is half-built, and trailing bytes after a frame are an error too.
 Crypto is untouched — the sealed-box ciphertexts cross this layer as
 opaque bytes, byte-identical to their base64 JSON form. The variant tag
-byte keeps ``sda_tpu``'s numbering; a Paillier tag (1) raises
-``NotImplementedError`` as its JSON form does, since the port has no
-Paillier scheme.
+byte keeps ``sda_tpu``'s numbering: 0 for a sealed box, 1 for a Packed
+Paillier ciphertext.
 """
 
 from __future__ import annotations
@@ -57,7 +56,6 @@ from ..protocol import (
     Participation,
     ParticipationId,
 )
-from ..protocol.schemes import PAILLIER_NOT_PORTED
 
 #: the negotiated binary media type; requests/responses carrying it hold
 #: exactly one frame as described in the module docstring
@@ -190,7 +188,7 @@ def _get_i64_column(r: _Reader, count: int) -> np.ndarray:
     return arr
 
 
-_SODIUM_TAG = Encryption.VARIANTS.index("Sodium")
+_VARIANT_TAG = {v: i for i, v in enumerate(Encryption.VARIANTS)}
 
 
 def _put_encryptions(parts: list, encryptions) -> None:
@@ -198,10 +196,14 @@ def _put_encryptions(parts: list, encryptions) -> None:
     parts.append(_uvarint(n))
     if not n:
         return
-    # every port ciphertext is a sodium sealed box; ``e.inner.data`` skips
-    # the ``data`` property descriptor, measurable at thousands per frame
-    datas = [e.inner.data for e in encryptions]
-    parts.append(bytes([_SODIUM_TAG]) * n)
+    # single pass; ``e.inner.data`` skips the ``data`` property descriptor,
+    # measurable at thousands of ciphertexts per frame
+    tags = bytearray(n)
+    datas = []
+    for i, e in enumerate(encryptions):
+        tags[i] = _VARIANT_TAG[e.variant]
+        datas.append(e.inner.data)
+    parts.append(bytes(tags))
     _put_i64_column(
         parts, np.fromiter(map(len, datas), dtype=np.int64, count=n)
     )
@@ -221,12 +223,17 @@ def _get_encryptions(r: _Reader) -> list:
     if max(variant_tags) >= len(variants):
         tag = next(t for t in variant_tags if t >= len(variants))
         raise WireError(f"unknown encryption variant tag {tag}")
-    if variant_tags.count(_SODIUM_TAG) != n:
-        raise NotImplementedError(PAILLIER_NOT_PORTED)
     build = Encryption._from_wire
     ends = np.cumsum(lengths).tolist()
     starts = [0] + ends[:-1]
-    return [build(blob[s:e]) for s, e in zip(starts, ends)]
+    if variant_tags.count(0) == n:
+        # overwhelmingly common frame: every ciphertext is a sodium sealed
+        # box — skip the per-item variant lookup entirely
+        return [build(blob[s:e], "Sodium") for s, e in zip(starts, ends)]
+    return [
+        build(blob[s:e], variants[t])
+        for s, e, t in zip(starts, ends, variant_tags)
+    ]
 
 
 def _put_uuid_column(parts: list, ids) -> None:

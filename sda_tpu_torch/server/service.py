@@ -1,5 +1,5 @@
 """SdaServer core and its ACL-enforcing service wrapper (counterpart of
-``sda_tpu/server/service.py``, sodium aggregations only).
+``sda_tpu/server/service.py``).
 
 ``SdaServer`` delegates every RPC to the four stores (the SDA server's
 server.rs:23-191); ``SdaServerService`` implements the protocol's
@@ -10,8 +10,10 @@ double check on result submission. The auth-token methods serve the REST
 binding's trust-on-first-use login. Tiered aggregations are validated at
 creation (``protocol/tiers.py`` bounds and promotion rules), a tiered
 root's delete cascades over its derived tree, and share-promotion rows are
-checked at the door. Paillier recipient encryption is not ported: the
-schemes' decoders refuse it.
+checked at the door. A Packed Paillier aggregation is checked at creation
+(recipient encryption only, Full masking, masks within the component
+bound), and each participation's Paillier mask ciphertext is checked for
+well-formedness at the door, with the recipient's public key only.
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ from ..protocol import (
     AggregationStatus,
     ChaChaMasking,
     EncryptionKey,
+    FullMasking,
     InvalidCredentialsError,
     InvalidRequestError,
+    PackedPaillierEncryptionScheme,
     PermissionDeniedError,
     Pong,
     SdaService,
@@ -115,6 +119,29 @@ class SdaServer:
             raise InvalidRequestError(
                 "ChaCha masking dimension differs from aggregation vector dimension"
             )
+        if isinstance(
+            aggregation.committee_encryption_scheme, PackedPaillierEncryptionScheme
+        ):
+            # shares are signed residues (truncated-remainder semantics);
+            # Paillier packing is nonnegative-only, so clerk transport
+            # stays on sodium sealed boxes
+            raise InvalidRequestError(
+                "PackedPaillier applies to recipient encryption only"
+            )
+        if isinstance(
+            aggregation.recipient_encryption_scheme, PackedPaillierEncryptionScheme
+        ):
+            pscheme = aggregation.recipient_encryption_scheme
+            if not isinstance(masking, (FullMasking,)) and masking.has_mask():
+                # ChaCha uploads SEEDS as masks — summing seeds
+                # homomorphically would corrupt the unmask silently
+                raise InvalidRequestError(
+                    "PackedPaillier recipient encryption requires Full masking"
+                )
+            if aggregation.modulus.bit_length() > pscheme.max_value_bitsize:
+                raise InvalidRequestError(
+                    "mask values would not fit the Paillier component bound"
+                )
         # hierarchical knobs travel together: tiers counts committee levels
         # (so 1 is just "flat" and must be spelled as absence — the fields
         # are omitted from wire/signing bytes when unset, and an explicit
@@ -198,7 +225,8 @@ class SdaServer:
     def _sodium_key_of(self, key_id, owner):
         """The registered sodium box key ``key_id`` signed by ``owner``, or
         None. The single definition of "usable clerk key": clerk transport
-        is sodium sealed boxes, and participants verify signer == clerk
+        is sodium sealed boxes (a Paillier key would crash participants at
+        share-sealing time), and participants verify signer == clerk
         client-side (participate.py), so a key signed by anyone else
         dead-ends the aggregation just the same."""
         signed = self.agents_store.get_encryption_key(key_id)
@@ -265,15 +293,50 @@ class SdaServer:
             raise InvalidRequestError(
                 "participation clerk encryptions do not match the committee"
             )
-        # order against the committee (every port ciphertext is a sodium
-        # sealed box: the Encryption codec refuses any other variant)
-        for (clerk, _), want in zip(ce, expected):
+        # one pass over the row: order against the committee, and clerk
+        # transport is sodium — a mis-tagged ciphertext would only surface
+        # as an opaque clerk-side decrypt failure later
+        for (clerk, e), want in zip(ce, expected):
             if clerk != want:
                 raise InvalidRequestError(
                     "participation clerk encryptions do not match the committee"
                 )
+            if e.variant != "Sodium":
+                raise InvalidRequestError(
+                    "clerk encryptions must be sodium sealed boxes"
+                )
+        self._validate_recipient_encryption(participation, agg)
         if participation.tier_reshare is not None:
             self._validate_tier_reshare(participation, agg)
+
+    def _validate_recipient_encryption(self, participation, agg) -> None:
+        """Shape-check the recipient (mask) ciphertext at the door. For
+        Paillier the wire format is public, so a garbage blob — which would
+        otherwise surface only at snapshot-combine or recipient-decrypt
+        time, after the participant's shares are in the aggregate — is
+        rejected here. Sodium sealed boxes are opaque; only the variant tag
+        can be checked."""
+        enc = participation.recipient_encryption
+        if enc is None:
+            return
+        if agg is None:
+            return  # caller's store write will surface the missing aggregation
+        scheme = agg.recipient_encryption_scheme
+        if not isinstance(scheme, PackedPaillierEncryptionScheme):
+            if enc.variant != "Sodium":
+                raise InvalidRequestError(
+                    "recipient encryption must be a sodium sealed box"
+                )
+            return
+        from ..crypto.encryption import paillier_ciphertext_well_formed
+
+        signed = self.agents_store.get_encryption_key(agg.recipient_key)
+        if signed is None:
+            return  # can't check without the key; combine falls back safely
+        if not paillier_ciphertext_well_formed(
+            enc, signed.body.body, scheme, agg.vector_dimension
+        ):
+            raise InvalidRequestError("malformed Paillier recipient encryption")
 
     def _validate_tier_reshare(self, participation, agg) -> None:
         """Gate share-promotion rows at the door: a tagged row must target
@@ -369,9 +432,10 @@ class SdaServer:
         self._count_promotion(agg, [participation])
 
     def create_participations(self, participations) -> None:
-        """Batched ingest: every item passes the exact single-item checks,
-        with committee/aggregation lookups amortized per aggregation, then ONE bulk
-        store write — which rejects atomically, so one invalid
+        """Batched ingest: every item passes the exact single-item checks
+        (committee order, sodium variants, recipient-ciphertext shape),
+        with committee/aggregation lookups amortized per aggregation, then
+        ONE bulk store write — which rejects atomically, so one invalid
         participation stores nothing from the batch."""
         participations = list(participations)
         committees: dict = {}

@@ -12,8 +12,9 @@ freeze -> job fan-out -> mask collect -> commit. Everything before the
 commit stage is idempotent — membership freeze is write-once, job ids
 deterministic, the mask blob a plain overwrite of identical content — so a
 crashed run retried by the client replays cleanly into the stores'
-create-if-identical semantics. The reference's server-side Paillier mask
-combine is not ported: the server refuses Paillier aggregations.
+create-if-identical semantics. Under Packed Paillier recipient encryption
+the mask-collect stage multiplies the participants' mask ciphertexts into
+one (``_maybe_combine_masks``), with the recipient's public key only.
 
 Hierarchical aggregations run this SAME pipeline once per node of their
 derived tree (protocol/tiers.py): each sub-aggregation's snapshot fans
@@ -208,6 +209,9 @@ def _stage_collect_masks(server, aggregation, snapshot) -> None:
         if part.recipient_encryption is None:
             raise ServerError("participation should have had a recipient encryption")
         recipient_encryptions.append(part.recipient_encryption)
+    recipient_encryptions = _maybe_combine_masks(
+        server, aggregation, recipient_encryptions
+    )
     server.aggregation_store.create_snapshot_mask(snapshot.id, recipient_encryptions)
 
 
@@ -246,3 +250,57 @@ def run_snapshot(server, snapshot) -> None:
     for stage in SNAPSHOT_STAGES:
         stage(server, aggregation, snapshot)
     log.debug("snapshot %s: done", snapshot.id)
+
+
+def _maybe_combine_masks(server, aggregation, recipient_encryptions):
+    """Homomorphic server-side mask combine (the Paillier scale-up path of
+    the SDA README's "Doing more"): when masks are PackedPaillier-encrypted,
+    multiply all participants' ciphertexts into ONE — the recipient then
+    decrypts O(dim) data regardless of participant count. Public-key only;
+    the untrusted server learns nothing. Falls back to the uncombined list
+    (recipient combines after decrypting, still correct) if the cohort
+    exceeds the packing's addition capacity or the key is unavailable.
+    """
+    from ..protocol import PackedPaillierEncryptionScheme
+
+    scheme = aggregation.recipient_encryption_scheme
+    if not isinstance(scheme, PackedPaillierEncryptionScheme):
+        return recipient_encryptions
+    if len(recipient_encryptions) < 2:
+        return recipient_encryptions
+    from ..ops.paillier import Packing
+
+    capacity = Packing(
+        scheme.component_count, scheme.component_bitsize, scheme.max_value_bitsize
+    ).additions_capacity
+    if len(recipient_encryptions) > capacity:
+        log.warning(
+            "snapshot: %d participations exceed Paillier addition capacity %d; "
+            "leaving masks uncombined",
+            len(recipient_encryptions),
+            capacity,
+        )
+        return recipient_encryptions
+    signed = server.agents_store.get_encryption_key(aggregation.recipient_key)
+    if signed is None:
+        log.warning("snapshot: recipient key unavailable; leaving masks uncombined")
+        return recipient_encryptions
+    from ..crypto.encryption import combine_encryptions
+
+    try:
+        with get_metrics().phase("snapshot.paillier_combine"):
+            combined = combine_encryptions(
+                signed.body.body, scheme, recipient_encryptions
+            )
+    except Exception:
+        # one malformed participant upload must not wedge the snapshot
+        # forever (retries would re-read the same stored participations):
+        # the uncombined list is always a correct fallback — the recipient
+        # decrypts and combines client-side.
+        log.warning(
+            "snapshot: homomorphic mask combine failed; leaving masks "
+            "uncombined",
+            exc_info=True,
+        )
+        return recipient_encryptions
+    return [combined]

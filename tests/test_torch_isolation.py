@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``sda_tpu_torch`` nor ``chip_smoke.py``
 imports ``jax``, ``sda_tpu`` or ``requests`` (which the card's machine may
-lack); entry points default to CUDA and raise without it; ``chip_smoke.py``
-fails on a host without a GPU."""
+lack), and none loads a system crypto library (``libcrypto``,
+``libsodium``); entry points default to CUDA and raise without it;
+``chip_smoke.py`` fails on a host without a GPU."""
 
 import ast
 import os
@@ -57,6 +58,33 @@ def test_rest_plane_modules_are_scanned():
                  "server/filestore", "server/sqlstore", "server/instrument", "telemetry/prom",
                  "telemetry/timeseries", "utils/faults", "utils/hashring", "cli/sda", "cli/sdad"):
         assert f"sda_tpu_torch/{name}.py" in scanned
+
+
+def test_ingest_and_paillier_modules_are_scanned():
+    """The ingest pipeline, the prefetch pipeline, the arrival traces and
+    the Paillier arithmetic hold the port's own copies of reference code:
+    the scan above covers each of them."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("client/ingest", "client/prefetch", "utils/arrivals", "ops/paillier"):
+        assert f"sda_tpu_torch/{name}.py" in scanned
+
+
+def test_no_port_file_loads_a_system_crypto_library():
+    """The port's crypto is its own Python (sealed boxes, Ed25519, Paillier
+    on ``pow``): no file looks up a system library by name, and no ctypes
+    load names libcrypto or libsodium. The only shared objects it loads are
+    the kernels it builds from ``sda_tpu_torch/csrc``."""
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if not isinstance(node, ast.Call):
+                continue
+            name = getattr(node.func, "attr", getattr(node.func, "id", None))
+            where = f"{path.relative_to(ROOT)}:{node.lineno}"
+            assert name != "find_library", f"{where} looks up a system library"
+            if name in ("CDLL", "LoadLibrary", "PyDLL"):
+                for arg in node.args:
+                    if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                        assert "crypto" not in arg.value and "sodium" not in arg.value, where
 
 
 def _no_gpu():

@@ -4,8 +4,9 @@ seeded random ones, the port's frames are byte-equal to the reference's,
 each package decodes the other's frames to the same records, and the JSON
 bodies that ``SDA_WIRE=json`` selects are byte-equal too. Then the codec's
 safety contract on the port: every strict prefix and every trailing byte
-raises ``WireError``, garbage never escapes it, and a Paillier tag is
-refused as its JSON form is."""
+raises ``WireError``, garbage never escapes it, and a frame of Packed
+Paillier ciphertexts (variant tag 1) round-trips byte-equal to the
+reference's."""
 
 from __future__ import annotations
 
@@ -154,13 +155,16 @@ def test_garbage_fuzz_never_escapes_wireerror():
             wire.decode_participations(header + noise)
         except WireError:
             pass
-        except NotImplementedError as e:  # a stray Paillier tag in the noise
-            assert "Paillier" in str(e)
 
 
-def test_paillier_tag_is_refused():
-    frame = jwire.encode_encryptions([jp.Encryption(b"x" * 9, "Paillier")])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wire.decode_encryptions(frame)
+def test_paillier_tag_round_trips():
+    theirs = [jp.Encryption(b"x" * 9, "Paillier"), jp.Encryption(b"abc"),
+              jp.Encryption(b"\x00\x01" * 40, "Paillier")]
+    frame = jwire.encode_encryptions(theirs)
+    ours = wire.decode_encryptions(frame)
+    assert [e.variant for e in ours] == ["Paillier", "Sodium", "Paillier"]
+    assert [bytes(e.inner) for e in ours] == [bytes(e.inner) for e in theirs]
+    assert wire.encode_encryptions(ours) == frame
+    assert jwire.decode_encryptions(wire.encode_encryptions(ours)) == theirs
     with pytest.raises(WireError, match="variant tag"):
         wire.decode_encryptions(frame[:7] + b"\x05" + frame[8:])
