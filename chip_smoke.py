@@ -8,7 +8,9 @@ Phases, each reported on its own line:
 1. device: needs CUDA (exits nonzero without it); prints the card's name and
    power limit as ``nvidia-smi`` reports them;
 2. build: compiles every kernel from ``sda_tpu_torch/csrc`` (seconds, and
-   ptxas' register/spill report), and counts the int8 tensor-core
+   ptxas' register/spill report) and, beside them, the native batch layer
+   from ``sda_tpu_torch/native`` with the host's ``cc`` (its seconds and
+   ``cc --version``'s first line), and counts the int8 tensor-core
    instructions (``IMMA``) in K1's SASS with ``cuobjdump`` (none fails);
 3. parity: each kernel against its plain PyTorch version on the card, at the
    main path's full-width shape and at ragged shapes, bit-identical: K1 the
@@ -90,17 +92,32 @@ Phases, each reported on its own line:
    spread, the privacy account) and by launch counts; a ``privacy`` line
    composing the DP rounds; K1 and K2 against their plain versions at the
    rounds' shapes, and their ``numbers`` there.
+21. native (run here, before the rounds that ride it): the native batch
+   layer's C (``native_phase``) byte for byte against its plain versions at
+   fixed ephemeral keys: ``seal_participations`` at 1, 3 and 16 x 8 and
+   ``seal_batch`` of the same messages, each on the comb and the ladder
+   path, with messages of 0, 1 and 1,000 bytes and one CNN-width share
+   row, under ``SDA_NATIVE_THREADS=1`` and the default; ``open_batch`` of
+   plain-sealed boxes and a flipped byte refused at its index; a varint
+   round trip at the CNN's width; ``chacha_expand`` against
+   ``expand_seed`` at dims 1, 8,193 and 1,663,370 for p = 2^31 - 1,
+   2^61 - 1 and 2^63; the C fold of 10 CNN-width seeds against K2's
+   ``combine_masks_device``. One ``native`` line per case, each
+   ``identical: true``; then ``native rates`` (C against plain for one
+   CNN-width row).
 14. sealed round: the protocol plane's aggregation round
    (``sealed_round``) through ``new_mem_server`` and ``SdaClient``s, each
    member with its own keystore in a temporary directory: 10 participants
    (the paper's per-round cohort) each quantize a float update of the CNN
-   and mask (ChaCha), share (packed Shamir k=5, t=2, n=8, from
-   ``QuantizationSpec.fitted``) and seal it to 8 clerks with the port's own
-   sealed boxes; the snapshot, the clerks' chores, the recipient's reveal,
-   whose ChaCha combine of 10 x 1,663,370 elements runs on the card (K2);
-   one ``sealed round`` line with the stage times, the sealed bytes, the
+   and mask (ChaCha, expanded by the native layer's C), share (packed
+   Shamir k=5, t=2, n=8, from ``QuantizationSpec.fitted``) and seal it to 8
+   clerks in one ``native.seal_participations`` call; the snapshot, the
+   clerks' chores (batched opens in C), the recipient's reveal, whose ChaCha
+   combine of 10 x 1,663,370 elements runs on the card (K2); one ``sealed
+   round`` line with the stage times, the sealed bytes, the native layer's
    seal and open rates and its checks (the sum against numpy, K2 launched,
-   a flipped ciphertext byte refused by the clerk's open, a participation
+   every seal and open counted on a C path and nowhere else, a flipped
+   ciphertext byte refused by the clerk's open, a participation
    posted under another agent refused by the server, a key with an
    altered signature refused by the participant); a round at dim 1,000,
    below the device threshold, that launches no K2; K2 against its plain
@@ -1557,6 +1574,192 @@ def drivers_phase(card: str, dev, seed: int) -> tuple[int, int]:
     return k1, max_err
 
 
+# phase 21: the native batch layer (``sda_tpu_torch/native``: host C built
+# at first use, with no library behind it) against its plain versions, run
+# before phase 14 because phases 14, 17 and 19 ride it. Sealing cases: P
+# participants x 8 clerks, messages cycling through these lengths, the
+# ladder path forced by one clerk key that does not lift to a curve point
+NATIVE_PARTICIPANTS = (1, 3, 16)
+NATIVE_LENGTHS = (0, 1, 1_000)
+NATIVE_MODULI = ((1 << 31) - 1, (1 << 61) - 1, 1 << 63)
+NATIVE_DIMS = (1, 8_193)  # and the CNN's width
+NATIVE_FOLD_SEEDS = 10
+
+
+def _twist_key(native) -> bytes:
+    """The smallest u-coordinate that does not lift to a curve point (a
+    point on the twist): sealing to it takes the ladder path."""
+    from sda_tpu_torch.crypto import sodium
+
+    lifting = sodium.box_keypair()[0]
+    for u in range(2, 100):
+        key = u.to_bytes(32, "little")
+        if native.participation_keys(8, [key, lifting]) == 16:
+            return key
+    raise AssertionError("no twist point below u = 100")
+
+
+def native_phase(card: str, dev, seed: int) -> None:
+    """Phase 21: the native layer byte for byte against its plain versions
+    (``crypto/sodium.py``, ``crypto/varint.py``, ``ops/chacha.expand_seed``)
+    at fixed ephemeral keys: ``seal_participations`` at P x 8 for each P of
+    ``NATIVE_PARTICIPANTS``, and ``seal_batch`` of the same P x 8 messages,
+    each on the comb and the ladder path, with messages of
+    ``NATIVE_LENGTHS`` bytes and one CNN-width share row, under
+    ``SDA_NATIVE_THREADS=1`` and the default; ``open_batch`` of plain-sealed
+    boxes, and a flipped byte refused at its index; a varint round trip at
+    the CNN's width with the int64 extremes; ``chacha_expand`` at
+    ``NATIVE_DIMS`` and the CNN's width for each of ``NATIVE_MODULI``; and
+    the C fold of ``NATIVE_FOLD_SEEDS`` CNN-width seeds against K2's
+    ``combine_masks_device`` on the card, which holds K2 against a third
+    implementation. One ``native`` line per case with ``identical``; any
+    ``false`` raises. Then one ``native rates`` line: C against plain for
+    one CNN-width row (seal and open MB/s, expand ms) and the fold's ms
+    beside K2's."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import native
+    from sda_tpu_torch.crypto import sodium, varint
+    from sda_tpu_torch.ops.chacha import expand_seed
+    from sda_tpu_torch.ops.chacha_cuda import combine_masks_device
+
+    rng = np.random.default_rng(seed + 21)
+    dim = sum(math.prod(s) for leaves in FEDAVG_MODEL.values() for s in leaves.values())
+    row = rng.integers(-(1 << 30), 1 << 30, size=dim, dtype=np.int64)
+    cnn_message = native.varint_encode(row)
+
+    def identical(case: str, same: bool, **fields) -> None:
+        _line("native", case=case, identical=bool(same), **fields, card=card)
+        if not same:
+            raise AssertionError(f"the native layer differs from its plain version: {case}")
+
+    def message(i: int) -> bytes:
+        n = NATIVE_LENGTHS[i % len(NATIVE_LENGTHS)]
+        return rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
+
+    def key_at(keys: bytes, i: int) -> bytes:
+        return keys[32 * i:32 * i + 32]
+
+    pairs = [sodium.box_keypair() for _ in range(SEALED_CLERKS)]
+    pks = [pk for pk, _ in pairs]
+    twist = _twist_key(native)
+    prior = os.environ.get("SDA_NATIVE_THREADS")
+    try:
+        for threads in ("1", None):
+            if threads is None:
+                os.environ.pop("SDA_NATIVE_THREADS", None)
+            else:
+                os.environ["SDA_NATIVE_THREADS"] = threads
+            label = f"SDA_NATIVE_THREADS={threads or 'default'} ({native._default_threads()})"
+            for P in NATIVE_PARTICIPANTS:
+                for path, keys in (("comb", pks), ("ladder", pks[:-1] + [twist])):
+                    matrix = [[message(p * SEALED_CLERKS + c) for c in range(SEALED_CLERKS)]
+                              for p in range(P)]
+                    if P == 1:
+                        matrix[0][3] = cnn_message
+                    n_keys = native.participation_keys(P, keys)
+                    shared = n_keys == P
+                    eks = os.urandom(32 * n_keys)
+                    got = native.seal_participations(matrix, keys, ephemeral_keys=eks)
+                    want = [[sodium.seal_with_ephemeral(
+                        matrix[p][c], keys[c], key_at(eks, p if shared else p * SEALED_CLERKS + c))
+                        for c in range(SEALED_CLERKS)] for p in range(P)]
+                    identical(f"seal_participations P={P} C={SEALED_CLERKS} {path} {label}",
+                              got == want and shared == (path == "comb"), ephemeral_keys=n_keys,
+                              bytes=sum(len(m) for r in matrix for m in r))
+                    # the same P x C messages as one batch to the last key,
+                    # which lifts on the comb path and not on the ladder's
+                    flat = [m for r in matrix for m in r]
+                    eks = os.urandom(32 * len(flat))
+                    got = native.seal_batch(flat, keys[-1], ephemeral_keys=eks)
+                    want = [sodium.seal_with_ephemeral(m, keys[-1], key_at(eks, i))
+                            for i, m in enumerate(flat)]
+                    identical(f"seal_batch n={len(flat)} {path} {label}", got == want,
+                              bytes=sum(len(m) for m in flat))
+    finally:
+        if prior is None:
+            os.environ.pop("SDA_NATIVE_THREADS", None)
+        else:
+            os.environ["SDA_NATIVE_THREADS"] = prior
+
+    pk, sk = pairs[0]
+    msgs = [message(i) for i in range(9)] + [cnn_message]
+    boxes = [sodium.seal(m, pk) for m in msgs]
+    identical("open_batch of plain-sealed boxes", native.open_batch(boxes, pk, sk) == msgs,
+              boxes=len(boxes))
+    flipped = bytearray(boxes[5])
+    flipped[len(flipped) // 2] ^= 0x01
+    try:
+        native.open_batch(boxes[:5] + [bytes(flipped)] + boxes[6:], pk, sk)
+        refused_at = None
+    except sodium.SodiumError as e:
+        refused_at = e.index
+    identical("open_batch refuses a flipped byte at its index", refused_at == 5, index=refused_at)
+
+    values = row.copy()
+    values[:4] = [-(1 << 63), (1 << 63) - 1, -1, 0]
+    encoded = native.varint_encode(values)
+    identical(f"varint round trip at {dim} with the int64 extremes",
+              encoded == varint.encode_i64(values)
+              and np.array_equal(native.varint_decode(encoded), values)
+              and np.array_equal(varint.decode_i64(encoded), values), bytes=len(encoded))
+
+    seed_words = rng.integers(0, 1 << 32, size=SEED_WORDS, dtype=np.uint64).astype(np.uint32)
+    for m in NATIVE_MODULI:
+        for d in NATIVE_DIMS + (dim,):
+            identical(f"chacha_expand dim={d} m={m}",
+                      np.array_equal(native.chacha_expand(seed_words, d, m),
+                                     expand_seed(seed_words, d, m)))
+
+    seeds = rng.integers(0, 1 << 32, size=(NATIVE_FOLD_SEEDS, SEED_WORDS),
+                         dtype=np.uint64).astype(np.uint32)
+    fold_ms = {}
+    for m in NATIVE_MODULI[:2]:  # K2's fold takes moduli below 2^62
+        t0 = time.perf_counter()
+        host = native.chacha_combine(seeds, dim, m)
+        fold_ms[f"c_{m}"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_fold = combine_masks_device(seeds, dim, m, device=dev).cpu().numpy()
+        fold_ms[f"k2_{m}"] = (time.perf_counter() - t0) * 1e3
+        identical(f"chacha_combine of {NATIVE_FOLD_SEEDS} seeds x {dim} against K2's "
+                  f"combine_masks_device, m={m}", np.array_equal(host, card_fold))
+
+    # rates for one CNN-width row, C against plain
+    def timed(fn, reps: int = 3) -> float:
+        best = math.inf
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    mb = len(cnn_message) / 1e6
+    box = native.seal_batch([cnn_message], pk)[0]
+    p31 = NATIVE_MODULI[0]
+    rates = {
+        "row_bytes": len(cnn_message),
+        "seal_mb_s": mb / timed(lambda: native.seal_batch([cnn_message], pk)),
+        "seal_comb_8_mb_s": 8 * mb / timed(lambda: native.seal_participations([[cnn_message] * 8],
+                                                                              pks)),
+        "seal_plain_mb_s": mb / timed(lambda: sodium.seal(cnn_message, pk), reps=1),
+        "open_mb_s": mb / timed(lambda: native.open_batch([box], pk, sk)),
+        "open_plain_mb_s": mb / timed(lambda: sodium.seal_open(box, pk, sk), reps=1),
+        "varint_encode_ms": 1e3 * timed(lambda: native.varint_encode(row)),
+        "varint_encode_plain_ms": 1e3 * timed(lambda: varint.encode_i64(row), reps=1),
+        "varint_decode_ms": 1e3 * timed(lambda: native.varint_decode(cnn_message)),
+        "varint_decode_plain_ms": 1e3 * timed(lambda: varint.decode_i64(cnn_message), reps=1),
+        "expand_ms": 1e3 * timed(lambda: native.chacha_expand(seed_words, dim, p31)),
+        "expand_plain_ms": 1e3 * timed(lambda: expand_seed(seed_words, dim, p31), reps=1),
+        "fold_ms": fold_ms,
+        "threads": native._default_threads(),
+    }
+    _line("native rates", dim=dim, **rates, card=card)
+
+
 # phase 14: the sealed aggregation round through the protocol plane: an
 # untrusted in-memory server, a recipient and a committee of clerks with
 # their own keystores, participants that mask, share and seal. Ten
@@ -1565,30 +1768,78 @@ def drivers_phase(card: str, dev, seed: int) -> tuple[int, int]:
 SEALED_COHORT, SEALED_CLERKS, SEALED_SMALL_DIM = 10, 8, 1_000
 
 
-class _Timed:
-    """Wraps a module function: calls, summed seconds and summed bytes of
-    its first argument (the plaintext for ``seal``, the box for
-    ``seal_open``), for the rates of the sealed round's crypto."""
+#: the labels under which the native layer counts its seals, opens and
+#: mask expansions: its C paths, and no other
+C_PATHS = {"comb", "batch", "native"}
 
-    def __init__(self, module, name: str):
-        self.module, self.name = module, name
-        self.fn = getattr(module, name)
-        self.calls, self.seconds, self.bytes = 0, 0.0, 0
 
-    def __enter__(self):
-        def timed(data, *args):
+def _crypto_counts(telemetry) -> dict:
+    """``sda_crypto_*`` counters by ``(name, path)``."""
+    return {(c["name"], c["labels"].get("path")): c["value"]
+            for c in telemetry.snapshot(include_spans=0)["counters"]
+            if c["name"].startswith("sda_crypto_")}
+
+
+class _NativeTally:
+    """Wraps the native layer's ``seal_participations``, ``seal_batch`` and
+    ``open_batch`` for the length of a round: boxes, bytes (the plaintext of
+    a seal, the box of an open) and summed seconds, for the rates of the
+    round's crypto, counted as they were over the plain ``sodium.seal``
+    and ``sodium.seal_open``, which the round no longer calls. ``checks()``
+    holds the telemetry counters' growth over the same span to the boxes
+    seen: every seal and open counted on a C path, none elsewhere."""
+
+    SEALS = ("seal_participations", "seal_batch")
+
+    def __init__(self):
+        from sda_tpu_torch import native, telemetry
+
+        self.native, self.telemetry = native, telemetry
+        self.lock = threading.Lock()
+        self.boxes = {"seal": 0, "open": 0}
+        self.bytes = {"seal": 0, "open": 0}
+        self.seconds = {"seal": 0.0, "open": 0.0}
+        self.real = {}
+
+    def _wrap(self, name: str, kind: str):
+        fn = self.real[name] = getattr(self.native, name)
+
+        def timed(items, *args, **kwargs):
+            flat = [m for row in items for m in row] if name == "seal_participations" else items
             t0 = time.perf_counter()
-            out = self.fn(data, *args)
-            self.seconds += time.perf_counter() - t0
-            self.calls += 1
-            self.bytes += len(data)
+            out = fn(items, *args, **kwargs)
+            dt = time.perf_counter() - t0
+            with self.lock:
+                self.seconds[kind] += dt
+                self.boxes[kind] += len(flat)
+                self.bytes[kind] += sum(len(m) for m in flat)
             return out
 
-        setattr(self.module, self.name, timed)
+        setattr(self.native, name, timed)
+
+    def __enter__(self):
+        self.before = _crypto_counts(self.telemetry)
+        for name in self.SEALS:
+            self._wrap(name, "seal")
+        self._wrap("open_batch", "open")
         return self
 
     def __exit__(self, *exc):
-        setattr(self.module, self.name, self.fn)
+        for name, fn in self.real.items():
+            setattr(self.native, name, fn)
+        self.after = _crypto_counts(self.telemetry)
+
+    def rate_mb_s(self, kind: str):
+        return self.bytes[kind] / self.seconds[kind] / 1e6 if self.seconds[kind] else None
+
+    def checks(self) -> dict:
+        grew = {key: self.after[key] - self.before.get(key, 0) for key in self.after
+                if self.after[key] != self.before.get(key, 0)}
+        seals = sum(n for (name, _), n in grew.items() if name == "sda_crypto_seals_total")
+        opens = sum(n for (name, _), n in grew.items() if name == "sda_crypto_opens_total")
+        return {"seals_counted_on_c": self.boxes["seal"] > 0 and seals == self.boxes["seal"],
+                "opens_counted_on_c": self.boxes["open"] > 0 and opens == self.boxes["open"],
+                "only_c_paths": bool(grew) and {path for _, path in grew} <= C_PATHS}
 
 
 def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = False,
@@ -1606,7 +1857,9 @@ def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = Fals
     posted under another agent and a committee key whose signature was
     altered. Returns the stage seconds, the revealed vector, the sealed
     bytes (None when the server is not in this process), the seal and open
-    rates and the checks."""
+    rates of the native layer (``_NativeTally``) and the checks: always
+    the tally's three (every seal and open counted on a C path), with
+    ``with_checks`` the three refusals too."""
     import numpy as np
     import torch
 
@@ -1683,7 +1936,7 @@ def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = Fals
         return recipient, clerks, participants, aggregation
 
     t_wall = time.perf_counter()
-    with _Timed(sodium, "seal") as seals, _Timed(sodium, "seal_open") as opens:
+    with _NativeTally() as tally:
         recipient, clerks, participants, aggregation = stage("upload_s", upload)
         stage("participate_s", lambda: [part.participate(v, aggregation.id)
                                         for part, v in zip(participants, values)])
@@ -1698,7 +1951,7 @@ def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = Fals
     seconds["wall_s"] = time.perf_counter() - t_wall
     torch.cuda.synchronize()
     seconds["mask_combine_s"] = sum(a.elapsed_time(b) for (a, b), _ in folds) / 1e3 if folds else None
-    checks = {}
+    checks = tally.checks()
     if with_checks:
         # a clerking job with one ciphertext byte flipped: the clerk's open
         # must refuse it
@@ -1742,8 +1995,8 @@ def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = Fals
         sealed = sum(len(e.inner) for part in stored for _, e in part.clerk_encryptions)
         sealed += sum(len(part.recipient_encryption.inner) for part in stored)
     return {"seconds": seconds, "values": out.positive().values, "sealed_bytes": sealed,
-            "seal_mb_s": seals.bytes / seals.seconds / 1e6, "seals": seals.calls,
-            "open_mb_s": opens.bytes / opens.seconds / 1e6, "opens": opens.calls,
+            "seal_mb_s": tally.rate_mb_s("seal"), "seals": tally.boxes["seal"],
+            "open_mb_s": tally.rate_mb_s("open"), "opens": tally.boxes["open"],
             "folds": folds, "checks": checks}
 
 
@@ -1860,10 +2113,13 @@ def sealed_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
         small_exact = bool(np.array_equal(small_out["values"], np.stack(small).sum(axis=0) % p))
         _line("sealed round", participants=SEALED_COHORT, clerks=SEALED_CLERKS, dim=SEALED_SMALL_DIM,
               modulus=p, mask_elements=SEALED_COHORT * SEALED_SMALL_DIM, **small_out["seconds"],
-              launches={"chacha20": chacha_cuda.launches}, exact=small_exact, card=card)
-        if not small_exact or chacha_cuda.launches:
+              seals=small_out["seals"], opens=small_out["opens"],
+              launches={"chacha20": chacha_cuda.launches}, exact=small_exact,
+              checks=small_out["checks"], card=card)
+        if not small_exact or chacha_cuda.launches or not all(small_out["checks"].values()):
             raise AssertionError(f"small sealed round: exact {small_exact}, "
-                                 f"{chacha_cuda.launches} chacha20 launches (expected 0)")
+                                 f"{chacha_cuda.launches} chacha20 launches (expected 0), "
+                                 f"checks {small_out['checks']}")
 
     k2_err = _k2_at_fold(card, dev, out["folds"], dim, p, sm_clocks_per_ms, launches,
                          "sealed round")
@@ -2785,9 +3041,10 @@ def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: 
     more than one range; no live row handed to the service before its
     arrival less the slack, every churned row after the last live row,
     ``IngestReport.churned`` equal to the trace's churn count; the backlog
-    within its bound; and the requests counted here equal to the server's
-    summed ``sda_http_requests_total``. Returns ``(k2 launches, k2
-    max_abs_err, served requests)``."""
+    within its bound; the requests counted here equal to the server's
+    summed ``sda_http_requests_total``; and every seal and open of this
+    process counted on a native C path (``_NativeTally``). Returns ``(k2
+    launches, k2 max_abs_err, served requests)``."""
     import urllib.request
 
     import numpy as np
@@ -2866,46 +3123,48 @@ def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: 
     traffic.install()
     masking.combine_masks_device = timed_combine
     try:
-        t_wall = time.perf_counter()
-        recipient = client("recipient")
-        recipient.upload_agent()
-        recipient_key = recipient.new_encryption_key()
-        recipient.upload_encryption_key(recipient_key)
-        clerks = [client(f"clerk{i}") for i in range(SEALED_CLERKS)]
-        for clerk in clerks:
-            clerk.upload_agent()
-            clerk.upload_encryption_key(clerk.new_encryption_key())
-        aggregation = Aggregation(
-            id=AggregationId.random(), title="ingest round", vector_dimension=dim, modulus=p,
-            recipient=recipient.agent.id, recipient_key=recipient_key,
-            masking_scheme=ChaChaMasking(modulus=p, dimension=dim, seed_bitsize=32 * SEED_WORDS),
-            committee_sharing_scheme=scheme,
-            recipient_encryption_scheme=SodiumEncryptionScheme(),
-            committee_encryption_scheme=SodiumEncryptionScheme())
-        recipient.upload_aggregation(aggregation)
-        recipient.begin_aggregation(aggregation.id, chosen_clerks=[c.agent.id for c in clerks])
-        phones = [recorded(client(f"phone{i}")) for i in range(INGEST_IDENTITIES)]
-        for phone in phones:
-            phone.upload_agent()
-        seconds["setup_s"] = time.perf_counter() - t_wall
+        with _NativeTally() as tally:
+            t_wall = time.perf_counter()
+            recipient = client("recipient")
+            recipient.upload_agent()
+            recipient_key = recipient.new_encryption_key()
+            recipient.upload_encryption_key(recipient_key)
+            clerks = [client(f"clerk{i}") for i in range(SEALED_CLERKS)]
+            for clerk in clerks:
+                clerk.upload_agent()
+                clerk.upload_encryption_key(clerk.new_encryption_key())
+            aggregation = Aggregation(
+                id=AggregationId.random(), title="ingest round", vector_dimension=dim, modulus=p,
+                recipient=recipient.agent.id, recipient_key=recipient_key,
+                masking_scheme=ChaChaMasking(modulus=p, dimension=dim,
+                                             seed_bitsize=32 * SEED_WORDS),
+                committee_sharing_scheme=scheme,
+                recipient_encryption_scheme=SodiumEncryptionScheme(),
+                committee_encryption_scheme=SodiumEncryptionScheme())
+            recipient.upload_aggregation(aggregation)
+            recipient.begin_aggregation(aggregation.id, chosen_clerks=[c.agent.id for c in clerks])
+            phones = [recorded(client(f"phone{i}")) for i in range(INGEST_IDENTITIES)]
+            for phone in phones:
+                phone.upload_agent()
+            seconds["setup_s"] = time.perf_counter() - t_wall
 
-        t0 = time.perf_counter()
-        cursor = {"index": 0, "t": 0.0, "t0": time.perf_counter()}
-        report = ingest_cohort(phones, values, aggregation.id, trace=trace, cursor=cursor,
-                               window=INGEST_WINDOW)
-        seconds["ingest_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        snapshot_id = recipient.end_aggregation(aggregation.id)
-        seconds["snapshot_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        jobs = run_committee(clerks)
-        seconds["clerking_s"] = time.perf_counter() - t0
-        clerk_overlap = _gauge_value(telemetry, "sda_clerk_overlap_efficiency")
-        t0 = time.perf_counter()
-        out = recipient.reveal_aggregation(aggregation.id)
-        seconds["reveal_s"] = time.perf_counter() - t0
-        seconds["wall_s"] = time.perf_counter() - t_wall
-        reveal_overlap = _gauge_value(telemetry, "sda_reveal_overlap_efficiency")
+            t0 = time.perf_counter()
+            cursor = {"index": 0, "t": 0.0, "t0": time.perf_counter()}
+            report = ingest_cohort(phones, values, aggregation.id, trace=trace, cursor=cursor,
+                                   window=INGEST_WINDOW)
+            seconds["ingest_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            snapshot_id = recipient.end_aggregation(aggregation.id)
+            seconds["snapshot_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            jobs = run_committee(clerks)
+            seconds["clerking_s"] = time.perf_counter() - t0
+            clerk_overlap = _gauge_value(telemetry, "sda_clerk_overlap_efficiency")
+            t0 = time.perf_counter()
+            out = recipient.reveal_aggregation(aggregation.id)
+            seconds["reveal_s"] = time.perf_counter() - t0
+            seconds["wall_s"] = time.perf_counter() - t_wall
+            reveal_overlap = _gauge_value(telemetry, "sda_reveal_overlap_efficiency")
     finally:
         masking.combine_masks_device = real_combine
         traffic.remove()
@@ -2944,6 +3203,7 @@ def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: 
         "backlog_bound": report.max_backlog_seen <= 4 * INGEST_WINDOW,
         "jobs_done": jobs == SEALED_CLERKS,
         "metrics_count_requests": served == traffic.counts["requests"],
+        **tally.checks(),
     }
     _line("ingest round", phones=INGEST_PHONES, identities=INGEST_IDENTITIES, clerks=SEALED_CLERKS,
           dim=dim, modulus=p,
@@ -2959,8 +3219,9 @@ def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: 
           clerk_result_ranges=clerk_ranges, fold_rows=fold_rows,
           mask_combine_s=[a.elapsed_time(b) / 1e3 for (a, b), _, _ in folds],
           **traffic.counts, served_requests=served, wire=wire.mode(),
-          k2_launches=launches, implied_folds=implied, slack_recoveries=recoveries, exact=exact,
-          checks=checks, card=card)
+          k2_launches=launches, implied_folds=implied, slack_recoveries=recoveries,
+          seals=tally.boxes["seal"], seal_mb_s=tally.rate_mb_s("seal"), opens=tally.boxes["open"],
+          open_mb_s=tally.rate_mb_s("open"), exact=exact, checks=checks, card=card)
     if not all(checks.values()):
         raise AssertionError(f"ingest round: a check failed: {checks}")
     k2_err = 0
@@ -3151,9 +3412,30 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
 
     # -- 2. build ----------------------------------------------------------
+    from sda_tpu_torch import native
+
     t0 = time.perf_counter()
+    native_build = {}
+
+    def build_native():  # the host C beside the kernels' nvcc processes
+        t = time.perf_counter()
+        try:
+            native.build()
+        except Exception as e:  # noqa: BLE001 - re-raised on the main thread
+            native_build["error"] = e
+        native_build["seconds"] = time.perf_counter() - t
+
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()
     reports = kernels.build_all()
-    _line("build", seconds=time.perf_counter() - t0, kernels=sorted(kernels.KERNELS))
+    native_thread.join()
+    if "error" in native_build:
+        raise native_build["error"]
+    cc_version = subprocess.run([native.compiler(), "--version"], check=True, capture_output=True,
+                                text=True, timeout=60).stdout.splitlines()[0]
+    _line("build", seconds=time.perf_counter() - t0, kernels=sorted(kernels.KERNELS),
+          native={"seconds": native_build["seconds"], "library": native.library_path().name,
+                  "cc": native.compiler(), "cc_version": cc_version})
     for name, report in reports.items():
         for text in report.strip().splitlines():
             print(f"ptxas[{name}]: {text}", flush=True)
@@ -3464,6 +3746,8 @@ def main(argv=None) -> int:
     # -- 13. weighted and DP FedAvg rounds with server optimizers ----------------
     model_k1, model_k2, model_k1_err, model_k2_err = model_rounds_phase(
         card, dev, args.seed, sm_clocks_per_ms)
+    # -- 21. the native batch layer against its plain versions, which 14-19 ride ---
+    native_phase(card, dev, args.seed)
     # -- 14. the sealed aggregation round through the protocol plane ---------------
     sealed_k2, sealed_k2_err = sealed_round_phase(card, dev, args.seed, sm_clocks_per_ms)
     # -- 15. DP federated training on the sealed round, checkpoints and a restore -

@@ -197,7 +197,10 @@ class Participating(VerifiedKeys):
             mask_encryptor = self.crypto.new_share_encryptor(
                 recipient_key, aggregation.recipient_encryption_scheme
             )
-            recipient_encryptions = [mask_encryptor.encrypt(m) for m in mask_rows]
+            if hasattr(mask_encryptor, "encrypt_batch"):
+                recipient_encryptions = mask_encryptor.encrypt_batch(mask_rows)
+            else:
+                recipient_encryptions = [mask_encryptor.encrypt(m) for m in mask_rows]
 
         # share the masked secrets: one share vector per clerk, for every
         # participation in the batch, then seal the whole P x C matrix

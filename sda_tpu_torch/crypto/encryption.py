@@ -2,13 +2,16 @@
 Packed Paillier for the recipient's masks (counterpart of
 ``sda_tpu/crypto/encryption.py``).
 
-Each share vector is zigzag-LEB128 encoded (``varint``) and sealed to the
-receiver's box public key with the port's own ``sodium.seal``; decryption
-opens and decodes. One ``seal`` or ``seal_open`` per share vector: the
-reference's batched native route (``native.seal_participations``, one
-ephemeral key per participant with comb-table scalar multiplications) is
-not ported, and its pure-Python fallback, a per-box ``seal`` loop, is what
-``encrypt_share_matrix`` does here.
+Each share vector is zigzag-LEB128 encoded and sealed to the receiver's box
+public key; decryption opens and decodes. Both halves run in the port's
+native layer (``sda_tpu_torch.native``, C with no library behind it), as
+the reference's run in ``sda_tpu.native`` over libsodium: the varints in
+one call per vector, the seals and opens in batches split over a pthread
+pool, and a committee's whole share matrix in one
+``native.seal_participations`` call (one ephemeral key per participant,
+comb-table scalar multiplications). A single ``encrypt`` or ``decrypt`` is
+a batch of one. ``crypto/sodium.py`` and ``crypto/varint.py`` are the plain
+versions the tests hold the layer against.
 
 Packed Paillier (``ops/paillier.py``) encrypts nonnegative bounded vectors
 to a Paillier key; its wire format, the server's homomorphic combine
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..ops import paillier
 from ..protocol import (
     B32,
@@ -30,7 +34,8 @@ from ..protocol import (
     PaillierEncryptionKey,
     SodiumEncryptionScheme,
 )
-from . import sodium, varint
+from ..utils import workpool
+from . import sodium
 from .keystore import DecryptionKey, EncryptionKeypair
 
 
@@ -44,6 +49,8 @@ class ShareDecryptor:
         raise NotImplementedError
 
     def decrypt_batch(self, encryptions) -> list:
+        """Default batch: a plain loop (sodium overrides with one native
+        batched call)."""
         return [self.decrypt(e) for e in encryptions]
 
 
@@ -52,8 +59,19 @@ class SodiumEncryptor(ShareEncryptor):
         self.pk = ek.data
 
     def encrypt(self, shares):
-        encoded = varint.encode_i64(np.asarray(shares, dtype=np.int64))
-        return Encryption(Binary(sodium.seal(encoded, self.pk)))
+        encoded = native.varint_encode(np.asarray(shares, dtype=np.int64))
+        return Encryption(Binary(native.seal_batch([encoded], self.pk)[0]))
+
+    def encrypt_batch(self, share_vectors) -> list:
+        """Seal many share vectors in one native batch call, split across
+        the shared worker pool when ``SDA_WORKERS`` > 1."""
+        encoded = [native.varint_encode(np.asarray(v, dtype=np.int64)) for v in share_vectors]
+        cts = workpool.map_items(
+            "seal",
+            encoded,
+            lambda sub, nt: native.seal_batch(sub, self.pk, n_threads=nt),
+        )
+        return [Encryption(Binary(ct)) for ct in cts]
 
 
 class SodiumDecryptor(ShareDecryptor):
@@ -62,19 +80,50 @@ class SodiumDecryptor(ShareDecryptor):
         self.sk = keypair.dk.data
 
     def decrypt(self, encryption):
-        if encryption.variant != "Sodium":
-            raise ValueError(f"sodium decryptor got a {encryption.variant} ciphertext")
-        raw = sodium.seal_open(bytes(encryption.inner), self.pk, self.sk)
-        return varint.decode_i64(raw)
+        return self.decrypt_batch([encryption])[0]
+
+    def decrypt_batch(self, encryptions) -> list:
+        """Open many sealed boxes in one native batch call (the clerk-side
+        per-participant loop, clerk.rs:79-82)."""
+        for e in encryptions:
+            if e.variant != "Sodium":
+                raise ValueError(f"sodium decryptor got a {e.variant} ciphertext")
+        raws = workpool.map_items(
+            "open",
+            [bytes(e.inner) for e in encryptions],
+            lambda sub, nt: native.open_batch(sub, self.pk, self.sk, n_threads=nt),
+        )
+        return [native.varint_decode(r) for r in raws]
 
 
 def encrypt_share_matrix(clerk_keys, scheme, share_rows) -> list:
-    """Seal a whole committee's share matrix.
+    """Seal a whole committee's share matrix in one engine call.
 
     ``share_rows`` is a list over participants of ``(n_clerks, dim)`` share
     arrays; the result is a list over participants of per-clerk
-    ``Encryption`` lists (``result[p][c]`` sealed to ``clerk_keys[c]``),
-    one sealed box per share vector."""
+    ``Encryption`` lists (``result[p][c]`` sealed to ``clerk_keys[c]``).
+
+    For the sodium scheme the full ``P x C`` matrix goes through
+    ``native.seal_participations``: one ephemeral keypair per participant
+    shared across its clerk boxes, comb-table scalar multiplications, and
+    standard sealed boxes out. Other schemes take the per-clerk encryptor
+    loop."""
+    n_clerks = len(clerk_keys)
+    if isinstance(scheme, SodiumEncryptionScheme):
+        matrix = [
+            [
+                native.varint_encode(np.asarray(row[c], dtype=np.int64))
+                for c in range(n_clerks)
+            ]
+            for row in share_rows
+        ]
+        pks = [ek.data for ek in clerk_keys]
+        sealed = workpool.map_items(
+            "share_matrix",
+            matrix,
+            lambda sub, nt: native.seal_participations(sub, pks, n_threads=nt),
+        )
+        return [[Encryption(Binary(ct)) for ct in prow] for prow in sealed]
     encryptors = [new_share_encryptor(ek, scheme) for ek in clerk_keys]
     return [
         [enc.encrypt(row[c]) for c, enc in enumerate(encryptors)]

@@ -5,16 +5,17 @@ The participant produces ``(recipient_mask, masked_secrets)``; the recipient
 later combines all participants' masks and subtracts. Vectors are numpy int64
 on the host, as in the reference.
 
-The recipient's ChaCha combine is the protocol round's one device step. It
-keeps the reference's size routing: a cohort of at least
+A participant expands its ChaCha seed with the native layer's
+``chacha_expand`` (C), as the reference does. The recipient's ChaCha
+combine keeps the reference's size routing: a cohort of at least
 ``DEVICE_COMBINE_THRESHOLD`` seed x dimension elements is expanded and
 folded by ``combine_masks_device`` (the ChaCha20 kernel) on the masker's
-device; a smaller one takes the host ``expand_seed`` fold, and so does a
-modulus of 2^62 or more, which the device fold's int64 sums cannot hold
-exactly (the host fold's uint64 sums can). The reference
-wraps its device call in a ``try`` that falls back to the host; here there
-is none: a masker made for CUDA launches the kernel or raises, and a masker
-made with ``device="cpu"`` runs the kernel's plain version.
+device; a smaller one, and a modulus of 2^62 or more, which the device
+fold's int64 sums cannot hold exactly, take the native layer's
+``chacha_combine``, one C call for the cohort. The reference wraps its
+device call in a ``try`` that falls back to the host; here there is none: a
+masker made for CUDA launches the kernel or raises, and a masker made with
+``device="cpu"`` runs the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..device import resolve_device
-from ..ops.chacha import expand_seed
+from ..native import chacha_combine, chacha_expand
 from ..ops.chacha_cuda import combine_masks_device
 from ..ops.modular import WIDE_MAX_MODULUS, mod_sum_wide_np, rust_rem_np
 from ..ops.rng import uniform_mod_host
@@ -143,7 +144,7 @@ class ChaChaMasker(SecretMasker, MaskCombiner, SecretUnmasker):
         if len(secrets) != self.dimension:
             raise ValueError("dimension mismatch")
         seed = uniform_mod_host((self.seed_words,), 1 << 32).astype(np.uint32)
-        mask = expand_seed(seed, self.dimension, self.modulus)
+        mask = chacha_expand(seed, self.dimension, self.modulus)
         masked = rust_rem_np(secrets + mask, self.modulus)
         return seed.astype(np.int64), masked
 
@@ -159,13 +160,9 @@ class ChaChaMasker(SecretMasker, MaskCombiner, SecretUnmasker):
             return total.cpu().numpy()
         if not seed_rows:
             return np.zeros(self.dimension, dtype=np.int64)
-        # uint64 accumulate: two values each < m can exceed int64 for moduli
-        # above 2^62, but their uint64 sum is < 2^64
-        result = np.zeros(self.dimension, dtype=np.uint64)
-        mu = np.uint64(self.modulus)
-        for row in seed_rows:
-            result = (result + expand_seed(row, self.dimension, self.modulus).astype(np.uint64)) % mu
-        return result.astype(np.int64)
+        # one C call expands and folds the whole cohort; its uint64 sums hold
+        # moduli above 2^62 exactly
+        return chacha_combine(np.stack(seed_rows), self.dimension, self.modulus)
 
     def unmask(self, mask, masked):
         return rust_rem_np(np.asarray(masked, np.int64) - np.asarray(mask, np.int64), self.modulus)

@@ -244,10 +244,17 @@ def box_keypair() -> tuple[bytes, bytes]:
 
 def seal(message: bytes, public_key: bytes) -> bytes:
     """Anonymous sealed box: ephemeral-key encrypt to ``public_key``."""
+    return seal_with_ephemeral(message, public_key, os.urandom(BOX_SECRETKEYBYTES))
+
+
+def seal_with_ephemeral(message: bytes, public_key: bytes, esk: bytes) -> bytes:
+    """``seal`` under the given 32-byte ephemeral secret key ``esk``: the
+    plain version of the native layer's batch seals, which take their
+    ephemeral keys from the caller."""
     message = bytes(message)
     if len(public_key) != BOX_PUBLICKEYBYTES:
         raise SodiumError("crypto_box_seal failed")
-    epk, esk = box_keypair()
+    epk = x25519(esk, _BASE_U)
     try:
         shared = x25519(esk, public_key)
     except SodiumError:

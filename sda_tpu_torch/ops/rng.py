@@ -22,13 +22,23 @@ import torch
 
 
 def uniform_mod_host(shape, m: int, entropy=os.urandom) -> np.ndarray:
-    """Unbiased uniform int64 draws in [0, m) from OS entropy, by rejection
-    of the u64 draws at or above the largest multiple of m. The reference's
-    direct OS-entropy path; its route through the C ChaCha plane for large
-    draws is not ported (the port has no C plane)."""
+    """Unbiased uniform int64 draws in [0, m) from OS entropy.
+
+    Draws of at least 512 under the default ``os.urandom`` entropy take the
+    reference's route: the native layer's C ChaCha20 expansion keyed with a
+    fresh full 256-bit OS-entropy key per call, under the same unbiased
+    rand-0.3 rejection zone as the protocol's ChaCha masks. Smaller draws,
+    and a custom ``entropy`` source (tests pass deterministic ones), take
+    the direct path: rejection of the u64 draws at or above the largest
+    multiple of m. Both give unbiased uniforms over [0, m)."""
     if not (0 < m <= 1 << 63):
         raise ValueError(f"modulus out of range: {m}")
     n = int(np.prod(shape)) if shape else 1
+    if entropy is os.urandom and n >= 512:
+        from .. import native
+
+        seed = np.frombuffer(os.urandom(32), dtype=np.uint32)
+        return native.chacha_expand(seed, n, m).reshape(shape)
     out = np.empty(n, dtype=np.int64)
     rejection = (1 << 64) % m != 0
     zone = (1 << 64) - ((1 << 64) % m)  # accept draws < zone

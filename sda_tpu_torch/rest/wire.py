@@ -21,8 +21,9 @@ Column primitives:
 
     uvarint       unsigned LEB128 (framing counts and section lengths)
     i64 column    uvarint byte-length + zigzag-LEB128 stream, produced
-                  and parsed by the vectorized ``crypto/varint.py`` — the
-                  same codec share vectors already use
+                  and parsed by the native layer's varint calls
+                  (``native/_sdanative.c``) — the same codec share
+                  vectors already use
     uuid column   count x 16 raw bytes (count always known from context)
     bytes column  uvarint count + i64 column of per-item lengths +
                   the items' raw bytes, concatenated
@@ -46,7 +47,7 @@ import os
 
 import numpy as np
 
-from ..crypto import varint
+from .. import native
 from ..protocol import (
     AgentId,
     AggregationId,
@@ -171,7 +172,7 @@ def _open(buf: bytes, kind: int) -> _Reader:
 
 
 def _put_i64_column(parts: list, values) -> None:
-    encoded = varint.encode_i64(np.asarray(values, dtype=np.int64))
+    encoded = native.varint_encode(np.asarray(values, dtype=np.int64))
     parts.append(_uvarint(len(encoded)))
     parts.append(encoded)
 
@@ -180,7 +181,7 @@ def _get_i64_column(r: _Reader, count: int) -> np.ndarray:
     nbytes = r.uvarint()
     raw = bytes(r.take(nbytes))
     try:
-        arr = varint.decode_i64(raw)
+        arr = native.varint_decode(raw)
     except ValueError as e:
         raise WireError(f"bad i64 column: {e}")
     if len(arr) != count:

@@ -37,6 +37,7 @@ setup(
         "sda_tpu_torch.sketches",
         "sda_tpu_torch.rest",
         "sda_tpu_torch.cli",
+        "sda_tpu_torch.native",
     ],
     ext_modules=[
         Extension(

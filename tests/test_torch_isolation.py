@@ -1,11 +1,13 @@
 """The port stands alone: no module of ``sda_tpu_torch`` nor ``chip_smoke.py``
 imports ``jax``, ``sda_tpu`` or ``requests`` (which the card's machine may
-lack), and none loads a system crypto library (``libcrypto``,
-``libsodium``); entry points default to CUDA and raise without it;
-``chip_smoke.py`` fails on a host without a GPU."""
+lack), none loads a system crypto library (``libcrypto``, ``libsodium``) and
+the native layer's C sources include, declare and open none; entry points
+default to CUDA and raise without it; ``chip_smoke.py`` fails on a host
+without a GPU."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -70,10 +72,13 @@ def test_ingest_and_paillier_modules_are_scanned():
 
 
 def test_no_port_file_loads_a_system_crypto_library():
-    """The port's crypto is its own Python (sealed boxes, Ed25519, Paillier
-    on ``pow``): no file looks up a system library by name, and no ctypes
-    load names libcrypto or libsodium. The only shared objects it loads are
-    the kernels it builds from ``sda_tpu_torch/csrc``."""
+    """The port's crypto is its own (sealed boxes and Ed25519 in Python with
+    the native layer's C beside them, Paillier on ``pow``): no file looks up
+    a system library by name, and every ctypes load opens
+    ``str(library_path(...))``, a library the port built under
+    ``build/sda_tpu_torch/`` from its own sources (the kernels from
+    ``csrc/``, the native layer from ``native/``)."""
+    loads = []
     for path in PORT_FILES:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
             if not isinstance(node, ast.Call):
@@ -81,10 +86,39 @@ def test_no_port_file_loads_a_system_crypto_library():
             name = getattr(node.func, "attr", getattr(node.func, "id", None))
             where = f"{path.relative_to(ROOT)}:{node.lineno}"
             assert name != "find_library", f"{where} looks up a system library"
-            if name in ("CDLL", "LoadLibrary", "PyDLL"):
-                for arg in node.args:
-                    if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
-                        assert "crypto" not in arg.value and "sodium" not in arg.value, where
+            if name in ("CDLL", "LoadLibrary", "PyDLL", "WinDLL", "dlopen"):
+                (arg,) = node.args
+                assert ast.unparse(arg).startswith("str(library_path("), where
+                loads.append(where)
+    assert sorted(where.split(":")[0] for where in loads) == [
+        "sda_tpu_torch/kernels.py", "sda_tpu_torch/native/__init__.py"]
+
+
+C_SOURCES = sorted((ROOT / "sda_tpu_torch").rglob("*.c"))
+#: the C standard library and POSIX threads, and the layer's own sources
+C_HEADERS = ("stddef.h", "stdint.h", "stdlib.h", "string.h", "pthread.h", "sodium_prims.c",
+             "curve25519_comb.c")
+
+
+def test_native_sources_are_scanned():
+    names = {p.relative_to(ROOT).as_posix() for p in C_SOURCES}
+    assert names == {f"sda_tpu_torch/native/{n}.c"
+                     for n in ("_sdanative", "sodium_prims", "curve25519_comb")}
+
+
+@pytest.mark.parametrize("path", C_SOURCES, ids=lambda p: p.name)
+def test_native_sources_bind_no_system_library(path):
+    """The C carries its own primitives: it includes no libsodium or
+    OpenSSL header, opens no library at run time and declares no
+    ``extern`` symbol (the reference's ``_sdanative.c`` declares
+    libsodium's)."""
+    text = path.read_text()
+    includes = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', text, re.M)
+    assert includes, path
+    for header in includes:
+        assert header in C_HEADERS, f"{path.name} includes {header}"
+    assert "dlopen" not in text and "dlsym" not in text
+    assert not re.search(r"^\s*extern\b", text, re.M), f"{path.name} declares an extern symbol"
 
 
 def _no_gpu():

@@ -68,11 +68,13 @@ def _inputs():
     return np.random.default_rng(12).integers(0, P, size=(PARTICIPANTS, DIM))
 
 
-def http_round(root, client_pkg, url, values=None):
+def http_round(root, client_pkg, url, values=None, participants_pkg=None):
     """One ChaCha-masked packed-Shamir round through ``client_pkg``'s
-    ``SdaClient``s, each on its own ``SdaHttpClient`` to ``url``, with the
+    ``SdaClient``s (the participants' through ``participants_pkg``'s when
+    given), each on its own ``SdaHttpClient`` to ``url``, with the
     committee clerk at position ``DROP`` never running its chores."""
     proto = client_pkg["proto"]
+    participants_pkg = participants_pkg or client_pkg
     recipient = _member(client_pkg, root / "recipient", url)
     rkey = recipient.new_encryption_key()
     recipient.upload_agent()
@@ -93,9 +95,10 @@ def http_round(root, client_pkg, url, values=None):
     recipient.begin_aggregation(agg.id)
     values = _inputs() if values is None else values
     for i, row in enumerate(values):
-        part = _member(client_pkg, root / f"participant{i}", url)
+        part = _member(participants_pkg, root / f"participant{i}", url)
         part.upload_agent()
-        part.participate([int(v) for v in row], agg.id)
+        part.participate([int(v) for v in row],
+                         participants_pkg["proto"].AggregationId(str(agg.id)))
     recipient.end_aggregation(agg.id)
     committee = recipient.service.get_committee(recipient.agent, agg.id)
     dropped = committee.clerks_and_keys[DROP][0]
@@ -123,6 +126,42 @@ def test_round_in_every_pairing(tmp_path, monkeypatch, client, server, wire_mode
     with PACKAGES[server]["rest"].serve_background(service) as url:
         out = http_round(tmp_path, PACKAGES[client], url)
     np.testing.assert_array_equal(out, _inputs().sum(axis=0) % P)
+
+
+def _crypto_counts() -> dict:
+    return {(c["name"], c["labels"].get("path")): c["value"]
+            for c in telemetry.snapshot(include_spans=0)["counters"]
+            if c["name"].startswith("sda_crypto_")}
+
+
+@pytest.mark.parametrize("layout", ["port participants, reference committee",
+                                    "reference participants, port committee"])
+def test_mixed_round_over_http_rides_the_native_layer(tmp_path, layout):
+    """Port participants with a reference clerk committee and recipient,
+    and the reverse, over HTTP to the port's server: the reveal is exact
+    and every seal, open and mask expansion of the port's half is counted
+    on the native layer's C paths."""
+    port_participates = layout.startswith("port")
+    members, participants = (REFERENCE, PORT) if port_participates else (PORT, REFERENCE)
+    before = _crypto_counts()
+    with serve_background(new_mem_server()) as url:
+        out = http_round(tmp_path, members, url, participants_pkg=participants)
+    np.testing.assert_array_equal(out, _inputs().sum(axis=0) % P)
+    after = _crypto_counts()
+    grew = {key: after[key] - before.get(key, 0) for key in after
+            if after[key] != before.get(key, 0)}
+    assert {path for _, path in grew} <= {"comb", "batch", "native"}
+    if port_participates:
+        assert grew[("sda_crypto_seals_total", "comb")] == PARTICIPANTS * CLERKS
+        assert grew[("sda_crypto_seals_total", "batch")] == PARTICIPANTS
+        assert grew[("sda_crypto_chacha_expands_total", "native")] >= PARTICIPANTS
+        assert ("sda_crypto_opens_total", "batch") not in grew
+    else:
+        # the CLERKS - 1 working clerks open every share and seal a result
+        assert grew[("sda_crypto_opens_total", "batch")] >= (CLERKS - 1) * PARTICIPANTS
+        assert grew[("sda_crypto_seals_total", "batch")] == CLERKS - 1
+        assert grew[("sda_crypto_chacha_expands_total", "native")] >= PARTICIPANTS
+        assert ("sda_crypto_seals_total", "comb") not in grew
 
 
 def test_faulted_round_reveals_exactly(tmp_path, monkeypatch):

@@ -8,7 +8,7 @@ plain sum mod p (exact: no tolerance). Then: a committee clerk dropped, the
 paged delivery of jobs and results, the ChaCha combine's device route on the
 CPU's plain version, and mixed deployments through the wire JSON, where the
 port's participants seal for ``sda_tpu``'s server, clerks and recipient, and
-the reverse.
+the reverse, with the port's half sealing and opening in its native layer.
 """
 
 import numpy as np
@@ -19,6 +19,7 @@ import sda_tpu_torch.protocol as tp
 from sda_tpu.client import SdaClient as JClient
 from sda_tpu.crypto import Keystore as JKeystore
 from sda_tpu.server import new_mem_server as j_server
+from sda_tpu_torch import telemetry as ttelemetry
 from sda_tpu_torch.client import SdaClient as TClient
 from sda_tpu_torch.crypto import Keystore as TKeystore
 from sda_tpu_torch.crypto import masking as tmasking
@@ -279,3 +280,42 @@ def test_mixed_deployment_through_the_wire(tmp_path, layout, masking):
     got = run_round(tmp_path, "packed", masking, members=members, participants=participants,
                     server=(service, bridge))
     np.testing.assert_array_equal(got, _inputs().sum(axis=0) % P)
+
+
+def _crypto_counts() -> dict:
+    return {(c["name"], c["labels"].get("path")): c["value"]
+            for c in ttelemetry.snapshot(include_spans=0)["counters"]
+            if c["name"].startswith("sda_crypto_")}
+
+
+@pytest.mark.parametrize("layout", ["port participants, reference round",
+                                    "reference participants, port round"])
+def test_mixed_deployment_rides_the_native_layer(tmp_path, layout):
+    """A mixed deployment reveals exactly while the port's half seals,
+    opens and expands masks in the native layer's C: port participants seal
+    each 1 x 8 share matrix on the comb path and their ChaCha seed as a
+    batch of one; port clerks and a port recipient open in batches and the
+    recipient folds the seeds in C. No other path is counted."""
+    port_participates = layout.startswith("port")
+    members, participants = (REFERENCE, PORT) if port_participates else (PORT, REFERENCE)
+    service = members[3]()
+    bridge = WireBridge(service, members[0], participants[0])
+    before = _crypto_counts()
+    got = run_round(tmp_path, "packed", "chacha", members=members, participants=participants,
+                    server=(service, bridge))
+    np.testing.assert_array_equal(got, _inputs().sum(axis=0) % P)
+    after = _crypto_counts()
+    grew = {key: after[key] - before.get(key, 0) for key in after
+            if after[key] != before.get(key, 0)}
+    assert {path for _, path in grew} <= {"comb", "batch", "native"}
+    if port_participates:
+        assert grew[("sda_crypto_seals_total", "comb")] == PARTICIPANTS * CLERKS
+        assert grew[("sda_crypto_seals_total", "batch")] == PARTICIPANTS
+        assert grew[("sda_crypto_chacha_expands_total", "native")] >= PARTICIPANTS
+        assert ("sda_crypto_opens_total", "batch") not in grew
+    else:
+        # every clerk opens its PARTICIPANTS shares and seals one result
+        assert grew[("sda_crypto_opens_total", "batch")] >= CLERKS * PARTICIPANTS
+        assert grew[("sda_crypto_seals_total", "batch")] == CLERKS
+        assert grew[("sda_crypto_chacha_expands_total", "native")] == PARTICIPANTS
+        assert ("sda_crypto_seals_total", "comb") not in grew
