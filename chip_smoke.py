@@ -101,10 +101,14 @@ Phases, each reported on its own line:
    plain-sealed boxes and a flipped byte refused at its index; a varint
    round trip at the CNN's width; ``chacha_expand`` against
    ``expand_seed`` at dims 1, 8,193 and 1,663,370 for p = 2^31 - 1,
-   2^61 - 1 and 2^63; the C fold of 10 CNN-width seeds against K2's
-   ``combine_masks_device``. One ``native`` line per case, each
-   ``identical: true``; then ``native rates`` (C against plain for one
-   CNN-width row).
+   2^61 - 1 and 2^63; the box public key, Ed25519 seed keypairs and
+   detached signatures of seeded keys and messages of 0 to 4,096 bytes
+   against ``crypto/sodium.py``; ``mod_exp`` and ``mod_exp_batch`` against
+   Python's ``pow`` at 2,048 and 4,096 bits; the C fold of 10 CNN-width
+   seeds against K2's ``combine_masks_device``. One ``native`` line per
+   case, each ``identical: true``; then ``native rates`` (C against plain
+   for one CNN-width row) and a second ``native rates`` line for a 4,096-bit
+   modexp (``pow``, the C on one thread, the batch on every thread).
 14. sealed round: the protocol plane's aggregation round
    (``sealed_round``) through ``new_mem_server`` and ``SdaClient``s, each
    member with its own keystore in a temporary directory: 10 participants
@@ -194,20 +198,32 @@ Phases, each reported on its own line:
    arrival less the slack, churned rows after every live row, the churn
    count, the backlog bound, the server's request count; K2 against its
    plain version at each range's shape.
-20. paillier round: against the same ``sdad``, 10 participants of 1,000
+20. paillier round: against the same ``sdad``, 10 participants of 20,000
    field values under Full masking with their masks encrypted to a
    2,048-bit Paillier key (``PackedPaillierEncryptionScheme`` of 50
    components of 40 bits), phase 14's packed Shamir; the server's snapshot
-   combines the mask ciphertexts into one. One ``paillier round`` line
-   (keygen, participate, snapshot, clerking and reveal seconds) and its
-   checks: the reveal against numpy's sum mod p, one mask encryption in the
-   paged result, no K2 launch, the server's request count.
+   combines the mask ciphertexts into one; every modexp on the native
+   layer's Montgomery C. One ``paillier round`` line (keygen, participate,
+   snapshot, clerking and reveal seconds, the modexps counted per stage)
+   and its checks: the reveal against numpy's sum mod p, one mask
+   encryption in the paged result, no K2 launch, the server's request
+   count, every encryption and decryption on ``native.mod_exp_batch``.
+22. flight: phase 14's round once more at the CNN's width on CUDA clients,
+   each participant through ``participate_many``, under one trace id with
+   the JSON log sink installed; the flight recorder's ``round_report``,
+   ``critical_path`` and ``chrome_trace_json`` over the round's spans. One
+   ``flight`` line (the stages' seconds and shares, the critical path, span
+   and log-line counts) and its checks: every span logged once with the
+   trace id, one Chrome event per span, the stages within the round's wall
+   and covering half of it, the critical path inside the round, one K2
+   launch, the sum against numpy's; K2 against its plain version at the
+   fold's shape.
 
 Then the ``{"kernels": [...]}`` line (launches: K1's on the main path, the
 fabrics, the FedAvg round, the bench's K1 route, the ladder's config 3 and
 the model rounds, K2's on the masked path, the fabrics, the FedAvg round,
 the model rounds, the sealed round, the trainer rounds, the REST round,
-the tier round and the ingest round),
+the tier round, the ingest round and the flight round),
 and last ``{"ok":
 true, "device": ...}``. Any failed phase raises, and the script exits
 nonzero.
@@ -218,6 +234,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import random
 import shutil
 import re
 import subprocess
@@ -1584,6 +1601,11 @@ NATIVE_LENGTHS = (0, 1, 1_000)
 NATIVE_MODULI = ((1 << 31) - 1, (1 << 61) - 1, 1 << 63)
 NATIVE_DIMS = (1, 8_193)  # and the CNN's width
 NATIVE_FOLD_SEEDS = 10
+# key generation and signing: seeded secrets, and messages of these lengths
+NATIVE_KEYS, NATIVE_SIGN_LENGTHS = 8, (0, 1, 64, 1_000, 4_096)
+# modexp: moduli of these sizes (a Paillier n^2 at a 2,048-bit key is 4,096
+# bits), exponents half as long (n or lambda); the batch's base count
+NATIVE_MODEXP_BITS, NATIVE_MODEXP_BATCH = (2_048, 4_096), 32
 
 
 def _twist_key(native) -> bytes:
@@ -1610,12 +1632,15 @@ def native_phase(card: str, dev, seed: int) -> None:
     boxes, and a flipped byte refused at its index; a varint round trip at
     the CNN's width with the int64 extremes; ``chacha_expand`` at
     ``NATIVE_DIMS`` and the CNN's width for each of ``NATIVE_MODULI``; and
-    the C fold of ``NATIVE_FOLD_SEEDS`` CNN-width seeds against K2's
-    ``combine_masks_device`` on the card, which holds K2 against a third
-    implementation. One ``native`` line per case with ``identical``; any
-    ``false`` raises. Then one ``native rates`` line: C against plain for
-    one CNN-width row (seal and open MB/s, expand ms) and the fold's ms
-    beside K2's."""
+    the box public key, Ed25519 seed keypairs and detached signatures of
+    ``NATIVE_KEYS`` seeded keys over ``NATIVE_SIGN_LENGTHS`` against the
+    plain Python; ``mod_exp`` and ``mod_exp_batch`` against ``pow`` at
+    ``NATIVE_MODEXP_BITS``; the C fold of ``NATIVE_FOLD_SEEDS`` CNN-width
+    seeds against K2's ``combine_masks_device`` on the card, which holds K2
+    against a third implementation. One ``native`` line per case with
+    ``identical``; any ``false`` raises. Then one ``native rates`` line: C
+    against plain for one CNN-width row (seal and open MB/s, expand ms) and
+    the fold's ms beside K2's; and one for a 4,096-bit modexp."""
     import math
 
     import numpy as np
@@ -1714,6 +1739,41 @@ def native_phase(card: str, dev, seed: int) -> None:
                       np.array_equal(native.chacha_expand(seed_words, d, m),
                                      expand_seed(seed_words, d, m)))
 
+    # key generation and Ed25519 signing: the C against the plain Python
+    key_bytes = rng.integers(0, 256, size=(NATIVE_KEYS, 32), dtype=np.uint8)
+    identical(f"box_public_key of {NATIVE_KEYS} seeded secret keys",
+              all(native.box_public_key(sk.tobytes()) == sodium.x25519(sk.tobytes(),
+                                                                        sodium._BASE_U)
+                  for sk in key_bytes))
+    signers = []
+    for seed_bytes in key_bytes:
+        seed_bytes = seed_bytes.tobytes()
+        a, _ = sodium._expand_seed(seed_bytes)
+        vk = sodium._encode(sodium._scalar_mult(a, sodium._B))
+        signers.append((native.sign_seed_keypair(seed_bytes), (vk, seed_bytes + vk)))
+    identical(f"sign_seed_keypair of {NATIVE_KEYS} seeded seeds",
+              all(c == plain for c, plain in signers))
+    for n in NATIVE_SIGN_LENGTHS:
+        m = rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
+        sigs = [(native.sign_detached(m, sk), sodium.sign_detached(m, sk), vk)
+                for (vk, sk), _ in signers]
+        identical(f"sign_detached of a {n}-byte message under {NATIVE_KEYS} keys",
+                  all(c == plain and sodium.verify_detached(c, m, vk) for c, plain, vk in sigs))
+
+    # Montgomery modexp against Python's pow, one base and a batch
+    draw = random.Random(int(rng.integers(1 << 62)))
+    modexp_case = {}
+    for bits in NATIVE_MODEXP_BITS:
+        mod = draw.getrandbits(bits) | 1 | (1 << (bits - 1))
+        exp = draw.getrandbits(bits // 2) | (1 << (bits // 2 - 1))
+        bases = [draw.getrandbits(bits) for _ in range(NATIVE_MODEXP_BATCH)]
+        want = [pow(b, exp, mod) for b in bases]
+        identical(f"mod_exp at {bits} bits, a {bits // 2}-bit exponent",
+                  all(native.mod_exp(b, exp, mod) == w for b, w in zip(bases[:4], want)))
+        identical(f"mod_exp_batch of {NATIVE_MODEXP_BATCH} at {bits} bits",
+                  native.mod_exp_batch(bases, exp, mod) == want)
+        modexp_case[bits] = (bases, exp, mod)
+
     seeds = rng.integers(0, 1 << 32, size=(NATIVE_FOLD_SEEDS, SEED_WORDS),
                          dtype=np.uint64).astype(np.uint32)
     fold_ms = {}
@@ -1758,6 +1818,15 @@ def native_phase(card: str, dev, seed: int) -> None:
         "threads": native._default_threads(),
     }
     _line("native rates", dim=dim, **rates, card=card)
+
+    # 4,096-bit modexps with 2,048-bit exponents, Paillier's r^n mod n^2
+    bases, exp, mod = modexp_case[NATIVE_MODEXP_BITS[-1]]
+    _line("native rates", case="modexp", modulus_bits=mod.bit_length(),
+          exponent_bits=exp.bit_length(),
+          pow_ms=1e3 * timed(lambda: pow(bases[0], exp, mod), reps=2),
+          c_one_thread_ms=1e3 * timed(lambda: native.mod_exp(bases[0], exp, mod)),
+          batch_ms_per_modexp=1e3 * timed(lambda: native.mod_exp_batch(bases, exp, mod))
+          / len(bases), batch=len(bases), threads=native._default_threads(), card=card)
 
 
 # phase 14: the sealed aggregation round through the protocol plane: an
@@ -1843,7 +1912,7 @@ class _NativeTally:
 
 
 def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = False,
-                 service_for=None) -> dict:
+                 service_for=None, batched: bool = False) -> dict:
     """One ChaCha-masked aggregation of ``values`` (field vectors) through
     ``SdaClient``s on ``dev``, in the reference's sequence
     (tests/test_full_loop.py:40-93): agents and keys uploaded, the
@@ -1851,7 +1920,9 @@ def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = Fals
     every member's ``run_chores(-1)``, the reveal. ``service_for(name)``
     gives the ``SdaService`` the member ``name`` talks to (default: one
     in-process ``new_mem_server`` for every member), so one round serves
-    each transport. Times each stage; the recipient's K2 fold by CUDA
+    each transport. With ``batched``, each participant goes through
+    ``participate_many`` (its build and its upload each a span) instead of
+    ``participate``. Times each stage; the recipient's K2 fold by CUDA
     events around ``combine_masks_device``. With ``with_checks``, also
     tries a clerking job with one ciphertext byte flipped, a participation
     posted under another agent and a committee key whose signature was
@@ -1938,8 +2009,12 @@ def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = Fals
     t_wall = time.perf_counter()
     with _NativeTally() as tally:
         recipient, clerks, participants, aggregation = stage("upload_s", upload)
-        stage("participate_s", lambda: [part.participate(v, aggregation.id)
-                                        for part, v in zip(participants, values)])
+        if batched:
+            stage("participate_s", lambda: [part.participate_many([v], aggregation.id)
+                                            for part, v in zip(participants, values)])
+        else:
+            stage("participate_s", lambda: [part.participate(v, aggregation.id)
+                                            for part, v in zip(participants, values)])
         stage("snapshot_s", lambda: recipient.end_aggregation(aggregation.id))
         job = clerks[0].service.get_clerking_job(clerks[0].agent, clerks[0].agent.id)
         stage("clerking_s", lambda: [member.run_chores(-1) for member in [recipient] + clerks])
@@ -3009,8 +3084,11 @@ INGEST_SERVER_ENV = {"SDA_JOB_PAGE_THRESHOLD": "0", "SDA_JOB_CHUNK_SIZE": str(IN
 # phase 20: the Packed Paillier round against the same ``sdad``. 50 components
 # of 40 bits fill 2,000 of a 2,048-bit key's plaintext bits and hold 2^8
 # additions of 32-bit values, more than PAILLIER_COHORT; the dimension is cut
-# to PAILLIER_DIM because every ciphertext block is a 4,096-bit host ``pow``
-PAILLIER_DIM, PAILLIER_COHORT, PAILLIER_KEY_BITS = 1_000, 10, 2048
+# to PAILLIER_DIM because every ciphertext block is a 4,096-bit host modexp:
+# 5.44 ms each on the native layer's 8 threads of an H100 host (phase 21's
+# ``native rates``), so 20,000 values (4,000 encryptions) keep the phase
+# near its 40 s, where 50,000 would take ~55 s of encryptions alone
+PAILLIER_DIM, PAILLIER_COHORT, PAILLIER_KEY_BITS = 20_000, 10, 2048
 PAILLIER_PACKING = {"component_count": 50, "component_bitsize": 40, "max_value_bitsize": 32,
                     "min_modulus_bitsize": PAILLIER_KEY_BITS}
 
@@ -3231,6 +3309,42 @@ def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: 
     return launches, k2_err, served
 
 
+class _ModexpTally:
+    """Counts the Paillier plane's modexps for the length of a ``with``
+    block: ``native.mod_exp_batch`` calls and the bases they raise, and
+    single ``mod_exp`` calls through ``ops.paillier._mod_exp``. Installed
+    here, around the package's own calls; the package counts nothing."""
+
+    def __init__(self):
+        from sda_tpu_torch import native
+        from sda_tpu_torch.ops import paillier
+
+        self.native, self.paillier = native, paillier
+        self.lock = threading.Lock()
+        self.counts = {"batch_calls": 0, "batch_bases": 0, "single": 0}
+
+    def __enter__(self):
+        batch, single = self.real = self.native.mod_exp_batch, self.paillier._mod_exp
+
+        def counted_batch(bases, *args, **kwargs):
+            bases = list(bases)
+            with self.lock:
+                self.counts["batch_calls"] += 1
+                self.counts["batch_bases"] += len(bases)
+            return batch(bases, *args, **kwargs)
+
+        def counted_single(*args, **kwargs):
+            with self.lock:
+                self.counts["single"] += 1
+            return single(*args, **kwargs)
+
+        self.native.mod_exp_batch, self.paillier._mod_exp = counted_batch, counted_single
+        return self
+
+    def __exit__(self, *exc):
+        self.native.mod_exp_batch, self.paillier._mod_exp = self.real
+
+
 def paillier_round_phase(card: str, dev, seed: int, url: str, root: Path, traffic: "_Traffic",
                          served_before: float) -> None:
     """Phase 20: the Packed Paillier round against phase 19's ``sdad``:
@@ -3242,7 +3356,10 @@ def paillier_round_phase(card: str, dev, seed: int, url: str, root: Path, traffi
     ciphertexts into one, and the recipient decrypts that one. Held to: the
     reveal against numpy's sum mod p, exactly one mask encryption in the
     (paged) snapshot result, no K2 launch (Full masking folds on the host),
-    and the server's request count."""
+    the server's request count, and every modexp of the participants'
+    mask encryptions, of the clerks' result encryptions (the recipient's
+    Paillier key encrypts both) and of the recipient's decryptions counted
+    on ``native.mod_exp_batch`` (``_ModexpTally``), one call a vector."""
     import urllib.request
 
     import numpy as np
@@ -3303,18 +3420,21 @@ def paillier_round_phase(card: str, dev, seed: int, url: str, root: Path, traffi
         for participant in participants:
             participant.upload_agent()
         t0 = time.perf_counter()
-        for participant, row in zip(participants, values):
-            participant.participate(row, aggregation.id)
+        with _ModexpTally() as encrypting:
+            for participant, row in zip(participants, values):
+                participant.participate(row, aggregation.id)
         seconds["participate_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         snapshot_id = recipient.end_aggregation(aggregation.id)
         seconds["snapshot_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        run_committee(clerks)
+        with _ModexpTally() as clerking:
+            run_committee(clerks)
         seconds["clerking_s"] = time.perf_counter() - t0
         result = recipient.service.get_snapshot_result(recipient.agent, aggregation.id, snapshot_id)
         t0 = time.perf_counter()
-        out = recipient.reveal_aggregation(aggregation.id)
+        with _ModexpTally() as decrypting:
+            out = recipient.reveal_aggregation(aggregation.id)
         seconds["reveal_s"] = time.perf_counter() - t0
         seconds["wall_s"] = time.perf_counter() - t_wall
     finally:
@@ -3323,15 +3443,31 @@ def paillier_round_phase(card: str, dev, seed: int, url: str, root: Path, traffi
         served = _prometheus_sum(resp.read().decode("utf-8"), "sda_http_requests_total")
     exact = bool(np.array_equal(out.positive().values, want))
     masks = result.mask_encryption_count if result.is_paged() else len(result.recipient_encryptions)
+    # one mod_exp_batch a Paillier vector: a mask of PAILLIER_DIM values,
+    # a clerk's result of one share per packed batch of k secrets
+    per_block = PAILLIER_PACKING["component_count"]
+    mask_blocks = -(-PAILLIER_DIM // per_block)
+    share_blocks = -(-(-(-PAILLIER_DIM // scheme.secret_count)) // per_block)
     checks = {"sum": exact, "one_combined_mask": masks == 1, "no_k2": chacha_cuda.launches == 0,
               # phase 19's own metrics read is the one request not counted here
-              "metrics_count_requests": served == traffic.counts["requests"] + 1}
+              "metrics_count_requests": served == traffic.counts["requests"] + 1,
+              "encryptions_on_mod_exp_batch": encrypting.counts == {
+                  "batch_calls": PAILLIER_COHORT, "batch_bases": PAILLIER_COHORT * mask_blocks,
+                  "single": 0},
+              "clerk_results_on_mod_exp_batch": clerking.counts == {
+                  "batch_calls": SEALED_CLERKS, "batch_bases": SEALED_CLERKS * share_blocks,
+                  "single": 0},
+              "decryption_on_mod_exp_batch": decrypting.counts == {
+                  "batch_calls": 1 + SEALED_CLERKS,
+                  "batch_bases": mask_blocks + SEALED_CLERKS * share_blocks, "single": 0}}
     _line("paillier round", participants=PAILLIER_COHORT, clerks=SEALED_CLERKS, dim=PAILLIER_DIM,
           modulus=p, key_bits=PAILLIER_KEY_BITS, packing=PAILLIER_PACKING,
           scheme={"k": scheme.secret_count, "t": scheme.privacy_threshold, "n": scheme.share_count},
           **seconds, paged_result=result.is_paged(), mask_encryptions=masks,
           requests=traffic.counts["requests"] - requests_before,
           served_requests=served - served_before - 1,
+          modexps={"participate": encrypting.counts, "clerking": clerking.counts,
+                   "reveal": decrypting.counts},
           launches={"chacha20": chacha_cuda.launches}, exact=exact, checks=checks, card=card)
     if not all(checks.values()):
         raise AssertionError(f"paillier round: a check failed: {checks}")
@@ -3354,6 +3490,103 @@ def ingest_paillier_phases(card: str, dev, seed: int, sm_clocks_per_ms: float):
             paillier_round_phase(card, dev, seed, url, tmp / "paillier", traffic, served)
         finally:
             _stop(proc)
+    return launches, k2_err
+
+
+def flight_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+    """Phase 22: phase 14's sealed round once more (``SEALED_COHORT``
+    CNN-width updates, 8 clerks, packed Shamir k=5, t=2, n=8, ChaCha) on
+    CUDA clients, each participant through ``participate_many``, under one
+    trace id, with the JSON log sink installed (``logsink.install``) for
+    the round; then ``flight.round_report``, ``critical_path`` and
+    ``chrome_trace_json`` over the round's spans. Held to: every finished
+    span of the trace in the log exactly once with the trace id, one
+    complete event per span in the Chrome trace, each stage's busy seconds
+    and the stages' union at most the round's wall, the union at least half
+    of it,
+    the critical path inside the round's window, exactly one K2 launch (the
+    recipient's fold), and the reveal against numpy's sum mod p. One
+    ``flight`` line: the stages' seconds and shares, the critical path, the
+    span and log-line counts. The stages nest, so "summing" reads their
+    union (the report's ``busy_s``). Then K2 against its plain version at the
+    fold's shape. Returns ``(k2 launches, k2 max_abs_err)``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import telemetry
+    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.telemetry import flight, logsink
+
+    rng = np.random.default_rng(seed + 22)
+    scheme, values = _sealed_updates(dev, rng)
+    p, dim = scheme.prime_modulus, len(values[0])
+    want = np.stack(values).sum(axis=0) % p
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path = Path(tmp) / "telemetry.jsonl"
+        torch.cuda.synchronize()
+        chacha_cuda.launches = 0
+        handler = logsink.install(log_path)
+        try:
+            with telemetry.trace() as trace_id:
+                start = time.time()
+                out = sealed_round(dev, Path(tmp) / "round", values, scheme, batched=True)
+                end = time.time()
+        finally:
+            logsink.uninstall(handler)
+        launches = chacha_cuda.launches
+        lines = [json.loads(line) for line in log_path.read_text().splitlines()]
+    spans = [s for s in telemetry.spans(trace_id=trace_id) if s.get("duration_s") is not None]
+    logged = [r for r in lines if r.get("event") == "span" and r.get("trace_id") == trace_id]
+    keys = [(r["name"], r["start"], r["duration_s"]) for r in logged]
+    once = len(logged) == len(spans) and all(
+        keys.count((s["name"], s["start"], s["duration_s"])) == 1 for s in spans)
+    trace_doc = json.loads(flight.chrome_trace_json(spans))
+    complete = [e for e in trace_doc["traceEvents"] if e["ph"] == "X"]
+    report = flight.round_report(spans)
+    wall = end - start
+    # the stages nest (Metrics.phase's ``phase.clerk.*`` spans wrap the same
+    # seconds as ``clerk.*``, the store's spans sit inside ``ingest.upload``),
+    # so their sum counts some seconds twice; their union is the report's
+    # ``busy_s``
+    stage_sum = sum(row["busy_s"] for row in report["stages"])
+    path = flight.critical_path(spans)
+    hops = []  # the critical path, consecutive hops of one stage merged
+    for hop in report["critical_path"]:
+        stage = hop["name"].split(".", 1)[0]
+        if hops and hops[-1]["stage"] == stage:
+            hops[-1]["hops"] += 1
+            hops[-1]["duration_s"] += hop["duration_s"]
+            hops[-1]["names"] = sorted(set(hops[-1]["names"]) | {hop["name"]})
+        else:
+            hops.append({"stage": stage, "hops": 1, "offset_s": hop["offset_s"],
+                         "duration_s": hop["duration_s"], "names": [hop["name"]]})
+    exact = bool(np.array_equal(out["values"], want))
+    checks = {"sum": exact, "one_k2_launch": launches == 1,
+              "spans_logged_once_with_trace_id": bool(spans) and once,
+              "chrome_trace_one_event_per_span": len(complete) == len(spans),
+              "stages_within_wall": report["busy_s"] <= wall and all(
+                  row["busy_s"] <= wall for row in report["stages"]),
+              "stages_cover_half_the_wall": report["busy_s"] >= 0.5 * wall,
+              "critical_path_inside_round": bool(path) and all(
+                  start <= s["start"] and s["start"] + s["duration_s"] <= end for s in path),
+              **out["checks"]}
+    _line("flight", participants=SEALED_COHORT, clerks=SEALED_CLERKS, dim=dim, modulus=p,
+          trace_id=trace_id, round_wall_s=wall, **out["seconds"],
+          report={k: report[k] for k in ("spans", "wall_s", "busy_s", "span_s",
+                                         "overlap_efficiency")},
+          stages=[{k: row[k] for k in ("stage", "spans", "offset_s", "busy_s", "span_s", "share")}
+                  for row in report["stages"]],
+          stage_busy_sum_s=stage_sum, critical_path=hops,
+          critical_path_longest=sorted(report["critical_path"], key=lambda h: -h["duration_s"])[:8],
+          spans=len(spans), log_lines=len(lines), log_lines_of_trace=len(logged),
+          chrome_trace_events=len(trace_doc["traceEvents"]),
+          launches={"chacha20": launches}, exact=exact, checks=checks, card=card)
+    if not all(checks.values()):
+        raise AssertionError(f"flight: a check failed: {checks}")
+    k2_err = _k2_at_fold(card, dev, out["folds"], dim, p, sm_clocks_per_ms, launches,
+                         "flight round")
     return launches, k2_err
 
 
@@ -3760,6 +3993,8 @@ def main(argv=None) -> int:
     tier_k2, tier_k2_err = tier_round_phase(card, dev, args.seed, sm_clocks_per_ms)
     # -- 19. arrival-driven ingest, paged reads; 20. the Packed Paillier round -----
     ingest_k2, ingest_k2_err = ingest_paillier_phases(card, dev, args.seed, sm_clocks_per_ms)
+    # -- 22. phase 14's round once more, traced, logged and read by the flight recorder
+    flight_k2, flight_k2_err = flight_phase(card, dev, args.seed, sm_clocks_per_ms)
 
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",
@@ -3781,9 +4016,9 @@ def main(argv=None) -> int:
         "source": "sda_tpu_torch/csrc/chacha20.cu",
         "replaces": "sda_tpu/ops/chacha_pallas.py:47",
         "launches": (masked_launches["chacha20"] + fabric_launches["chacha20"] + fedavg_k2 + model_k2
-                     + sealed_k2 + trainer_k2 + rest_k2 + tier_k2 + ingest_k2),
+                     + sealed_k2 + trainer_k2 + rest_k2 + tier_k2 + ingest_k2 + flight_k2),
         "max_abs_err": max(k2_err, fabric_k2_err, fedavg_k2_err, model_k2_err, sealed_k2_err,
-                           trainer_k2_err, rest_k2_err, tier_k2_err, ingest_k2_err),
+                           trainer_k2_err, rest_k2_err, tier_k2_err, ingest_k2_err, flight_k2_err),
         "ms": kernel2_ms,
         "plain_ms": plain2_ms,
         "bound_ms": max(bytes2_ms, ops2_ms),

@@ -16,7 +16,11 @@ versions the tests hold the layer against.
 Packed Paillier (``ops/paillier.py``) encrypts nonnegative bounded vectors
 to a Paillier key; its wire format, the server's homomorphic combine
 (``combine_encryptions``) and the server's public well-formedness check are
-``sda_tpu``'s, byte for byte. It is host arithmetic on Python integers.
+``sda_tpu``'s, byte for byte. Its modexps run in the native layer's
+Montgomery C, one batch per vector.
+
+Key generation (``generate_encryption_keypair``) runs in the native layer
+too, in constant time.
 """
 
 from __future__ import annotations
@@ -132,7 +136,9 @@ def encrypt_share_matrix(clerk_keys, scheme, share_rows) -> list:
 
 
 def generate_encryption_keypair() -> EncryptionKeypair:
-    pk, sk = sodium.box_keypair()
+    """A box keypair from the native layer's constant-time comb (libsodium's
+    ``crypto_box_keypair``; ``sodium.box_keypair`` is its plain version)."""
+    pk, sk = native.box_keypair()
     return EncryptionKeypair(ek=EncryptionKey(B32(pk)), dk=DecryptionKey(B32(sk)))
 
 

@@ -1,5 +1,8 @@
 """Ed25519 signing of labelled encryption keys (copy of
-``sda_tpu/crypto/signing.py`` over the port's own ``sodium``).
+``sda_tpu/crypto/signing.py``): keypairs and signatures in the port's native
+C, in constant time (libsodium's ``crypto_sign_keypair`` and
+``crypto_sign_detached`` in the reference); verification, which is public,
+in the port's own ``sodium``.
 
 Parity with the SDA client's crypto/signing/mod.rs: detached
 Ed25519 over the canonical JSON bytes of ``Labelled<EncryptionKeyId,
@@ -19,18 +22,19 @@ from ..protocol import (
     VerificationKey,
     canonical_bytes,
 )
+from .. import native
 from . import sodium
 from .keystore import SignatureKeypair
 
 
 def generate_signature_keypair() -> SignatureKeypair:
-    vk, sk = sodium.sign_keypair()
+    vk, sk = native.sign_keypair()
     return SignatureKeypair(vk=VerificationKey(B32(vk)), sk=SigningKey(B64(sk)))
 
 
 def sign(body, signer_id, keypair: SignatureKeypair) -> Signed:
     """Sign ``body`` (any wire object) with the agent's signing key."""
-    sig = sodium.sign_detached(canonical_bytes(body), keypair.sk.data)
+    sig = native.sign_detached(canonical_bytes(body), keypair.sk.data)
     return Signed(signature=Signature(B64(sig)), signer=signer_id, body=body)
 
 

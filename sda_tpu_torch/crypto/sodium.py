@@ -25,7 +25,10 @@ libsodium consumer (the CPU tests hold them against it):
 The Salsa20 keystream is vectorised over 64-byte blocks in numpy; the field
 arithmetic and Poly1305 are Python integers. This is variable-time code:
 it is not hardened against timing side channels as libsodium is (the tag
-compare alone is constant time, ``hmac.compare_digest``).
+compare alone is constant time, ``hmac.compare_digest``). It is the plain
+version the native layer is held against: the port's call sites seal, open,
+generate keys and sign in ``sda_tpu_torch.native``'s constant-time C, and
+verify (public) here.
 """
 
 from __future__ import annotations

@@ -1,26 +1,31 @@
-"""The native batch layer: bulk varints, batched sealed boxes and ChaCha20
-mask expansion in C (counterpart of ``sda_tpu/native``).
+"""The native layer: bulk varints, batched sealed boxes, ChaCha20 mask
+expansion, constant-time key generation and Ed25519 signing, and Montgomery
+modexp in C (counterpart of ``sda_tpu/native``).
 
-The reference layer is a CPython extension over the system libsodium. The
-port's is plain C with no library behind it (``sodium_prims.c`` for
-HSalsa20, XSalsa20-Poly1305, BLAKE2b and ChaCha20; ``curve25519_comb.c`` for
-X25519 on comb tables and a Montgomery ladder; ``_sdanative.c`` for the
-batch entry points), compiled on first use with the host's ``cc`` (or
-``gcc``) into ``build/sda_tpu_torch/libsdanative-<hash>.so`` at the
-checkout's root and bound through ``ctypes``, which releases the GIL for
-the whole call. The hash covers the three sources, so an edited source is
-rebuilt and a built one reused; concurrent builds each write their own
-temporary file and ``os.replace`` it into place.
+The reference layer is a CPython extension over the system libsodium, with
+``bignum.py`` over the system libcrypto. The port's is plain C with no
+library behind it (``sodium_prims.c`` for HSalsa20, XSalsa20-Poly1305,
+BLAKE2b and ChaCha20; ``curve25519_comb.c`` for X25519 on comb tables and a
+Montgomery ladder; ``ed25519.c`` for SHA-512, box public keys and Ed25519
+keypairs and signatures on the base comb table; ``bignum.c`` for Montgomery
+modexp over 64-bit limbs; ``_sdanative.c`` for the batch entry points),
+compiled on first use with the host's ``cc`` (or ``gcc``) into
+``build/sda_tpu_torch/libsdanative-<hash>.so`` at the checkout's root and
+bound through ``ctypes``, which releases the GIL for the whole call. The
+hash covers the five sources, so an edited source is rebuilt and a built
+one reused; concurrent builds each write their own temporary file and
+``os.replace`` it into place.
 
 There is no fallback: when the compiler is missing or the build fails, the
 first call raises with the compiler's output. The plain versions stay where
 they are (``crypto/sodium.py``, ``crypto/varint.py``,
 ``ops/chacha.expand_seed``) and the tests hold this layer against them.
 
-The ephemeral secret keys of sealed boxes are drawn here with one
-``os.urandom`` call and handed to the C, which clamps them; a caller may
-pass its own (``ephemeral_keys``), which is how the tests hold the C byte
-for byte against ``sodium.seal_with_ephemeral``. Each bulk entry point
+Box and signing secrets (``box_keypair``, ``sign_keypair``) are drawn here
+with ``os.urandom``, and so are the ephemeral secret keys of sealed boxes,
+with one call, handed to the C, which clamps them; a caller may pass its
+own (``ephemeral_keys``), which is how the tests hold the C byte for byte
+against ``sodium.seal_with_ephemeral``. Each bulk entry point
 counts its work under the reference's labels:
 ``sda_crypto_seals_total{path=batch|comb}``,
 ``sda_crypto_opens_total{path=batch}`` and
@@ -44,7 +49,7 @@ from .. import telemetry
 from ..kernels import BUILD_DIR
 
 SRC_DIR = Path(__file__).resolve().parent
-SOURCES = ("_sdanative.c", "sodium_prims.c", "curve25519_comb.c")
+SOURCES = ("_sdanative.c", "sodium_prims.c", "curve25519_comb.c", "ed25519.c", "bignum.c")
 CFLAGS = ["-O2", "-fPIC", "-shared", "-pthread"]
 SEALBYTES = 48
 
@@ -64,6 +69,11 @@ _SIGNATURES = {
                                  ctypes.c_int], _i64),
     "sda_chacha_expand": ([_u8, _i64, ctypes.c_uint64, _vp], None),
     "sda_chacha_combine": ([_u8, _i64, _i64, ctypes.c_uint64, _vp], None),
+    "sda_box_public_key": ([_u8, _vp], None),
+    "sda_sign_seed_keypair": ([_u8, _vp, _vp], None),
+    "sda_sign_detached": ([_u8, _i64, _u8, _vp], None),
+    "sda_mod_exp": ([_vp, _vp, _i64, _vp, _i64, _vp], _i64),
+    "sda_mod_exp_batch": ([_vp, _i64, _vp, _i64, _vp, _i64, _vp, ctypes.c_int], _i64),
 }
 
 _ERR_KEYS, _ERR_NOMEM = -2, -3
@@ -379,3 +389,112 @@ def chacha_combine(seed_rows, dim: int, modulus: int) -> np.ndarray:
     lib.sda_chacha_combine(_chacha_keys(rows.reshape(-1, rows.shape[-1])), n_seeds, int(dim),
                            int(modulus), _ptr(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# key generation and Ed25519 signing
+# ---------------------------------------------------------------------------
+
+
+def box_public_key(secret_key: bytes) -> bytes:
+    """X25519(secret_key, 9) on the base comb table, in constant time."""
+    sk = _check_key(secret_key, "secret key")
+    out = ctypes.create_string_buffer(32)
+    _load().sda_box_public_key(sk, out)
+    return out.raw
+
+
+def box_keypair() -> tuple[bytes, bytes]:
+    """A Curve25519 box keypair -> (public, secret): ``crypto_box_keypair``."""
+    sk = os.urandom(32)
+    return box_public_key(sk), sk
+
+
+def sign_seed_keypair(seed: bytes) -> tuple[bytes, bytes]:
+    """The Ed25519 keypair of a 32-byte seed -> (verify 32B, signing 64B =
+    seed || vk): ``crypto_sign_seed_keypair``."""
+    seed = _check_key(seed, "seed")
+    vk, sk = ctypes.create_string_buffer(32), ctypes.create_string_buffer(64)
+    _load().sda_sign_seed_keypair(seed, vk, sk)
+    return vk.raw, sk.raw
+
+
+def sign_keypair() -> tuple[bytes, bytes]:
+    """A fresh Ed25519 keypair -> (verify 32B, signing 64B)."""
+    return sign_seed_keypair(os.urandom(32))
+
+
+def sign_detached(message: bytes, signing_key: bytes) -> bytes:
+    """The deterministic Ed25519 signature of ``message`` under ``seed ||
+    vk``, as libsodium's ``crypto_sign_detached`` (the challenge hashes the
+    key's own ``vk`` half)."""
+    from ..crypto.sodium import SIGN_SECRETKEYBYTES, SodiumError
+
+    sk = bytes(signing_key)
+    if len(sk) != SIGN_SECRETKEYBYTES:
+        raise SodiumError("crypto_sign_detached failed")
+    message = bytes(message)
+    sig = ctypes.create_string_buffer(64)
+    _load().sda_sign_detached(message, len(message), sk, sig)
+    return sig.raw
+
+
+# ---------------------------------------------------------------------------
+# Montgomery modexp
+# ---------------------------------------------------------------------------
+
+
+def _limbs(values, n: int) -> np.ndarray:
+    """Python ints (each < 2^(64 n)) -> one little-endian uint64 array of n
+    limbs each."""
+    return np.frombuffer(b"".join(v.to_bytes(8 * n, "little") for v in values), dtype="<u8")
+
+
+def _check_modexp(exp: int, mod: int) -> int:
+    """The modulus's limb count; refuses what ``BN_mod_exp`` would and an
+    even modulus, which Montgomery multiplication cannot take."""
+    if exp < 0 or mod <= 0:
+        raise ValueError("mod_exp needs nonnegative base/exp and positive mod")
+    if not mod & 1:
+        raise ValueError("mod_exp needs an odd modulus (Montgomery form)")
+    return (mod.bit_length() + 63) // 64
+
+
+def _raise_modexp(status: int) -> None:
+    if status == _ERR_NOMEM:
+        raise MemoryError("the native layer could not allocate its modexp scratch")
+    if status != 0:  # the C's SDA_ERR_EVEN, which _check_modexp forestalls
+        raise ValueError("mod_exp needs an odd modulus (Montgomery form)")
+
+
+def _mod_exps(bases: list, exp: int, mod: int, n_threads: int) -> list:
+    n = _check_modexp(exp, mod)
+    if any(b < 0 for b in bases):
+        raise ValueError("mod_exp needs nonnegative base/exp and positive mod")
+    if not bases:
+        return []
+    e = _limbs([exp], max(1, (exp.bit_length() + 63) // 64))
+    m = _limbs([mod], n)
+    x = _limbs([b % mod for b in bases], n)
+    out = np.empty(len(bases) * n, dtype="<u8")
+    lib = _load()
+    if len(bases) == 1 and n_threads == 1:
+        status = lib.sda_mod_exp(_ptr(x), _ptr(e), e.size, _ptr(m), n, _ptr(out))
+    else:
+        status = lib.sda_mod_exp_batch(_ptr(x), len(bases), _ptr(e), e.size, _ptr(m), n,
+                                       _ptr(out), n_threads)
+    _raise_modexp(status)
+    raw = out.tobytes()
+    return [int.from_bytes(raw[8 * n * i:8 * n * (i + 1)], "little") for i in range(len(bases))]
+
+
+def mod_exp(base: int, exp: int, mod: int) -> int:
+    """``pow(base, exp, mod)`` for nonnegative operands and an odd modulus."""
+    return _mod_exps([base], exp, mod, 1)[0]
+
+
+def mod_exp_batch(bases, exp: int, mod: int, n_threads: int | None = None) -> list:
+    """``[pow(b, exp, mod) for b in bases]`` in one C call: the Montgomery
+    constants once for the modulus, the bases split over ``n_threads``
+    threads (``SDA_NATIVE_THREADS``, else one per CPU)."""
+    return _mod_exps(list(bases), exp, mod, n_threads or _default_threads())

@@ -4,8 +4,10 @@
  * The reference layer is a CPython extension over libsodium. This one is a
  * plain C library with no Python.h and no library behind it: the sealed
  * box's symmetric half comes from sodium_prims.c, the X25519 half from
- * curve25519_comb.c (comb tables and a Montgomery ladder), and
- * native/__init__.py builds the three files as one translation unit with
+ * curve25519_comb.c (comb tables and a Montgomery ladder); ed25519.c (key
+ * generation and signing on the same comb table) and bignum.c (Montgomery
+ * modexp over the pool below) are included at the end of this file, and
+ * native/__init__.py builds the five files as one translation unit with
  * the host's C compiler and binds it with ctypes, which releases the GIL
  * for the whole call.
  *
@@ -523,3 +525,9 @@ void sda_chacha_combine(const uint8_t *keys, int64_t n, int64_t dim, uint64_t m,
     memset(out, 0, (size_t)dim * sizeof *out);
     for (s = 0; s < n; s++) expand_key(keys + 32 * s, dim, m, NULL, out);
 }
+
+/* ---------------- key generation, signing, modexp ----------------
+ * included here, after the pool and the base table they use */
+
+#include "ed25519.c"
+#include "bignum.c"

@@ -1,4 +1,15 @@
-from .params import find_packed_parameters, is_prime
+from .params import (
+    element_order,
+    find_packed_parameters,
+    is_prime,
+    validate_packed_parameters,
+)
 from .shamir import verify_scheme
 
-__all__ = ["find_packed_parameters", "is_prime", "verify_scheme"]
+__all__ = [
+    "element_order",
+    "find_packed_parameters",
+    "is_prime",
+    "validate_packed_parameters",
+    "verify_scheme",
+]

@@ -22,14 +22,17 @@ component_bitsize bits, so up to ``2^(component_bitsize -
 max_value_bitsize)`` ciphertexts may be added before a component could
 carry into its neighbor — enforced by callers via ``additions_capacity``.
 
-All arithmetic is python-int (arbitrary precision, constant-time is NOT
-a goal — the threat model matches the reference's: honest-but-curious
-server, no timing channel to the key holder's own decryption): Python's
-three-argument ``pow`` and ``a * b % n``. ``sda_tpu`` routes both through
-OpenSSL's bignums when ``libcrypto`` loads; the port loads no shared
-library for its crypto, and the two give the same integers. This is host
-work: no kernel runs here. Key generation uses OS entropy with
-Miller-Rabin primality testing.
+Constant time is NOT a goal — the threat model matches the reference's:
+honest-but-curious server, no timing channel to the key holder's own
+decryption. Modexps run in the native layer's Montgomery C
+(``native.mod_exp``; ``encrypt_vector`` and ``decrypt_vector`` make one
+``native.mod_exp_batch`` call for all their blocks, split over a pthread
+pool), where ``sda_tpu`` calls OpenSSL's ``BN_mod_exp``; the port loads no
+shared library for its crypto, and the two give the same integers. There
+is no fallback: when the native layer cannot build, Paillier raises.
+Products stay ``a * b % n`` on Python integers. This is host work: no
+kernel runs here. Key generation uses OS entropy with Miller-Rabin
+primality testing.
 """
 
 from __future__ import annotations
@@ -37,9 +40,10 @@ from __future__ import annotations
 import secrets
 from dataclasses import dataclass
 
+from .. import native
 from .params import is_prime
 
-_mod_exp = pow
+_mod_exp = native.mod_exp
 
 
 def _mod_mul(a: int, b: int, mod: int) -> int:
@@ -93,16 +97,30 @@ def _gcd(a: int, b: int) -> int:
     return a
 
 
-def encrypt(pk: PaillierPublicKey, m: int, r: int | None = None) -> int:
-    """E(m) = (1+n)^m * r^n mod n^2 (with (1+n)^m = 1 + m*n mod n^2)."""
+def _random_unit(n: int) -> int:
+    """r uniform in [1, n) and coprime to n."""
+    while True:
+        r = secrets.randbelow(n)
+        if r and _gcd(r, n) == 1:
+            return r
+
+
+def _check_plaintext(pk: PaillierPublicKey, m: int) -> None:
     if not 0 <= m < pk.n:
         raise ValueError("plaintext out of range [0, n)")
+
+
+def _with_noise(pk: PaillierPublicKey, m: int, rn: int) -> int:
+    """(1+n)^m * r^n mod n^2 from r^n mod n^2 (with (1+n)^m = 1 + m*n)."""
+    return _mod_mul((1 + m * pk.n) % pk.n_sq, rn, pk.n_sq)
+
+
+def encrypt(pk: PaillierPublicKey, m: int, r: int | None = None) -> int:
+    """E(m) = (1+n)^m * r^n mod n^2 (with (1+n)^m = 1 + m*n mod n^2)."""
+    _check_plaintext(pk, m)
     if r is None:
-        while True:
-            r = secrets.randbelow(pk.n)
-            if r and _gcd(r, pk.n) == 1:
-                break
-    return _mod_mul((1 + m * pk.n) % pk.n_sq, _mod_exp(r, pk.n, pk.n_sq), pk.n_sq)
+        r = _random_unit(pk.n)
+    return _with_noise(pk, m, _mod_exp(r, pk.n, pk.n_sq))
 
 
 def add(pk: PaillierPublicKey, c1: int, c2: int) -> int:
@@ -110,12 +128,19 @@ def add(pk: PaillierPublicKey, c1: int, c2: int) -> int:
     return _mod_mul(c1, c2, pk.n_sq)
 
 
-def decrypt(sk: PaillierPrivateKey, c: int) -> int:
-    n_sq = sk.n * sk.n
-    if not 0 <= c < n_sq:
+def _check_ciphertext(sk: PaillierPrivateKey, c: int) -> None:
+    if not 0 <= c < sk.n * sk.n:
         raise ValueError("ciphertext out of range")
-    u = _mod_exp(c, sk.lam, n_sq)
+
+
+def _plaintext(sk: PaillierPrivateKey, u: int) -> int:
+    """m from u = c^lam mod n^2: L(u) * mu mod n."""
     return (u - 1) // sk.n * sk.mu % sk.n
+
+
+def decrypt(sk: PaillierPrivateKey, c: int) -> int:
+    _check_ciphertext(sk, c)
+    return _plaintext(sk, _mod_exp(c, sk.lam, sk.n * sk.n))
 
 
 # ---------------------------------------------------------------------------
@@ -175,10 +200,13 @@ def encrypt_vector(pk: PaillierPublicKey, packing: Packing, values) -> list:
     if not packing.fits(pk):
         raise ValueError("packing does not fit the key's plaintext space")
     cc = packing.component_count
-    return [
-        encrypt(pk, packing.pack(values[i : i + cc]))
-        for i in range(0, len(values), cc)
-    ]
+    plaintexts = [packing.pack(values[i : i + cc]) for i in range(0, len(values), cc)]
+    for m in plaintexts:
+        _check_plaintext(pk, m)
+    # one r per block, drawn in block order as ``encrypt`` draws them, then
+    # every r^n mod n^2 in one batch
+    noise = native.mod_exp_batch([_random_unit(pk.n) for _ in plaintexts], pk.n, pk.n_sq)
+    return [_with_noise(pk, m, rn) for m, rn in zip(plaintexts, noise)]
 
 
 def add_vectors(pk: PaillierPublicKey, blocks_a: list, blocks_b: list) -> list:
@@ -192,9 +220,11 @@ def decrypt_vector(
     sk: PaillierPrivateKey, packing: Packing, blocks: list, length: int
 ) -> list:
     """Decrypt + unpack ciphertext blocks back to a ``length`` vector."""
+    for c in blocks:
+        _check_ciphertext(sk, c)
     out = []
-    for block in blocks:
-        out.extend(packing.unpack(decrypt(sk, block)))
+    for u in native.mod_exp_batch(blocks, sk.lam, sk.n * sk.n):
+        out.extend(packing.unpack(_plaintext(sk, u)))
     if len(out) < length:
         raise ValueError("ciphertext blocks shorter than requested length")
     return out[:length]

@@ -3,8 +3,11 @@
 Valid parameter sets satisfy ``order(omega_secrets) == k + t + 1 == 2**a``,
 ``order(omega_shares) == n + 1 == 3**b`` and ``2**a * 3**b | p - 1`` with p
 prime. ``find_packed_parameters`` returns the same ``(p, omega_secrets,
-omega_shares)`` as the reference for the same seed. Modular exponentiation
-is Python's ``pow`` throughout.
+omega_shares)`` as the reference for the same seed. ``is_prime`` routes
+moduli of at least ``NATIVE_MODEXP_BITS`` bits (Paillier's candidates)
+through the native layer's Montgomery modexp, as the reference routes them
+through OpenSSL's; field moduli stay on Python's ``pow``, where a ctypes
+call would cost more than it saves.
 """
 
 from __future__ import annotations
@@ -17,6 +20,10 @@ _SMALL_PRIMES = [2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37]
 #: the fixed 12-base Miller-Rabin set is a proven deterministic test only
 #: below this bound
 _DETERMINISTIC_MR_BOUND = 3317044064679887385961981
+
+#: the modulus size from which ``is_prime`` takes the native modexp
+#: (the reference's ``best_mod_exp(min_bits=128)``)
+NATIVE_MODEXP_BITS = 128
 
 
 def is_prime(n: int, rng=None) -> bool:
@@ -33,8 +40,13 @@ def is_prime(n: int, rng=None) -> bool:
         d //= 2
         r += 1
 
+    if n.bit_length() >= NATIVE_MODEXP_BITS:
+        from ..native import mod_exp as _pow
+    else:
+        _pow = pow
+
     def strong_probable_prime(a: int) -> bool:
-        x = pow(a, d, n)
+        x = _pow(a, d, n)
         if x in (1, n - 1):
             return True
         for _ in range(r - 1):
@@ -95,6 +107,18 @@ def _factorize(n: int) -> dict:
     return factors
 
 
+def element_order(x: int, p: int) -> int:
+    """Multiplicative order of x in F_p*."""
+    x = x % p
+    if x == 0:
+        raise ValueError("0 has no multiplicative order")
+    order = p - 1
+    for q in _factorize(p - 1):
+        while order % q == 0 and pow(x, order // q, p) == 1:
+            order //= q
+    return order
+
+
 def _root_of_unity(p: int, n: int, rng: random.Random) -> int:
     """Find an element of exact order n in F_p* (requires n | p-1)."""
     if (p - 1) % n != 0:
@@ -107,6 +131,25 @@ def _root_of_unity(p: int, n: int, rng: random.Random) -> int:
             continue
         if all(pow(omega, n // q, p) != 1 for q in n_factors):
             return omega
+
+
+def validate_packed_parameters(scheme) -> None:
+    """Raise ValueError unless a PackedShamirSharing scheme is well-formed."""
+    m2 = scheme.secret_count + scheme.privacy_threshold + 1
+    m3 = scheme.share_count + 1
+    p = scheme.prime_modulus
+    if m2 & (m2 - 1) != 0:
+        raise ValueError(f"secret_count+privacy_threshold+1={m2} must be a power of 2")
+    if 3 ** round(math.log(m3, 3)) != m3:
+        raise ValueError(f"share_count+1={m3} must be a power of 3")
+    if not is_prime(p):
+        raise ValueError(f"prime_modulus={p} is not prime")
+    if element_order(scheme.omega_secrets, p) != m2:
+        raise ValueError(f"omega_secrets must have order {m2}")
+    if element_order(scheme.omega_shares, p) != m3:
+        raise ValueError(f"omega_shares must have order {m3}")
+    if scheme.share_count < scheme.reconstruction_threshold:
+        raise ValueError("share_count below reconstruction threshold")
 
 
 def find_packed_parameters(

@@ -50,6 +50,10 @@ class TypedId:
         self.uuid = u
         return self
 
+    @classmethod
+    def from_str(cls, s: str):
+        return cls(s)
+
     def to_json(self) -> str:
         return str(self.uuid)
 

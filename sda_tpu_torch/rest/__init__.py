@@ -5,13 +5,20 @@ store and the negotiated binary wire codec the hot routes ride
 
 from . import wire
 from .client import SdaHttpClient
-from .server import listen, serve_background, serve_background_multi, serve_forever
+from .server import (
+    listen,
+    make_handler,
+    serve_background,
+    serve_background_multi,
+    serve_forever,
+)
 from .tokenstore import TokenStore
 
 __all__ = [
     "SdaHttpClient",
     "TokenStore",
     "listen",
+    "make_handler",
     "serve_background",
     "serve_background_multi",
     "serve_forever",

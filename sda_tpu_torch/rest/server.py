@@ -1081,6 +1081,12 @@ class SdaRestServer:
 # -- module API --------------------------------------------------------------
 
 
+def make_handler(service):
+    """The reference's compatibility name from its ThreadingHTTPServer era:
+    the 'handler' for a service is its transport-independent ``Router``."""
+    return Router(service)
+
+
 def listen(addr: tuple, service) -> SdaRestServer:
     """Create (but do not start) an HTTP server bound to addr."""
     return SdaRestServer(addr, service)

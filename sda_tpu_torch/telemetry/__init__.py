@@ -2,9 +2,11 @@
 process-global registry of counters, gauges and histograms, a log of timed
 spans carrying a trace id propagated client -> REST (``X-SDA-Trace``) ->
 service -> store, the Prometheus text exposition served at
-``GET /v1/metrics`` and the time-series sampler behind
-``GET /v1/metrics/history``. The reference's flight recorder and JSON log
-sink are not ported.
+``GET /v1/metrics``, the time-series sampler behind
+``GET /v1/metrics/history``, a structured JSON log sink keyed by trace id
+(``logsink``: every finished span, once ``install``ed) and the round flight
+recorder (``flight``: Chrome trace export, the per-stage waterfall and the
+critical path of a round's spans).
 
 Start the process with ``SDA_TELEMETRY=0`` (or call ``set_enabled(False)``)
 and every operation becomes a branch-and-return. ``snapshot()`` has the

@@ -42,6 +42,10 @@ class Counter:
         with reg._lock:
             reg._counters[self._key] = reg._counters.get(self._key, 0) + delta
 
+    def value(self) -> int:
+        """Merged current value (snapshot-priced; not for hot paths)."""
+        return self._registry.snapshot()["counters"].get(self._key, 0)
+
 
 class Gauge:
     """Last-write-wins (merging gauges is meaningless)."""

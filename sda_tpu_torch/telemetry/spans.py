@@ -1,5 +1,7 @@
 """Timed spans in a bounded log, with a propagated trace id (copy of
-``sda_tpu/telemetry/spans.py`` without its JSON log sink).
+``sda_tpu/telemetry/spans.py``). Every finished span is also handed to the
+JSON log sink (``logsink.emit``), which writes it only when a handler
+listens at DEBUG.
 
 A *trace id* is an opaque token that follows one logical operation across
 layers: the REST client stamps it on every request (``X-SDA-Trace``), the
@@ -87,6 +89,9 @@ class SpanLog:
             record["duration_s"] = time.perf_counter() - t0
             with self._lock:
                 self._spans.append(record)
+            from .logsink import emit as _log_emit
+
+            _log_emit("span", record)
 
     def recent(self, name: str | None = None, trace_id: str | None = None) -> list:
         """Finished spans, oldest first, optionally filtered by name prefix

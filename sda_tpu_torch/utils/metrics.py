@@ -8,8 +8,12 @@ and the clerk call:
 - ``phase(name)``  -> ``sda_phase_seconds{phase=name}`` plus a
   ``phase.<name>`` span.
 
-Its ``report()``/``reset()`` windows serve ``bench.py``'s protocol riders,
-which are not ported. ``torch_trace`` is the counterpart of ``jax_trace``.
+``report()`` keeps the reference's shape (``counters`` + ``phases`` with
+count/total/mean/max) and ``reset()`` its windowing by baseline subtraction:
+it never wipes the process registry out from under other consumers.
+``max_s`` is the max since process start, not since ``reset()`` (histogram
+cells keep a running max, not a window). ``torch_trace`` is the
+counterpart of ``jax_trace``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,29 @@ _EVENTS = "sda_events_total"
 _PHASES = "sda_phase_seconds"
 
 
+def _collect() -> tuple:
+    """(counters by event, phases by name -> (count, total_s, max_s))
+    from the current registry snapshot."""
+    snap = telemetry.get_registry().snapshot()
+    counters = {
+        dict(labels)["event"]: value
+        for (name, labels), value in snap["counters"].items()
+        if name == _EVENTS
+    }
+    phases = {
+        dict(labels)["phase"]: (hist["count"], hist["sum"], hist["max"])
+        for (name, labels), hist in snap["histograms"].items()
+        if name == _PHASES
+    }
+    return counters, phases
+
+
 class Metrics:
+    def __init__(self):
+        # report() windows: totals at the last reset(), subtracted out
+        self._base_counters: dict = {}
+        self._base_phases: dict = {}
+
     def count(self, name: str, delta: int = 1) -> None:
         telemetry.counter(_EVENTS, "legacy Metrics.count events", event=name).inc(
             delta
@@ -41,6 +67,35 @@ class Metrics:
             finally:
                 # observed even when the phase body raises (legacy semantics)
                 hist.observe(time.perf_counter() - t0)
+
+    def report(self) -> dict:
+        counters, phases = _collect()
+        out_counters = {}
+        for name, value in counters.items():
+            windowed = value - self._base_counters.get(name, 0)
+            if windowed:
+                out_counters[name] = windowed
+        out_phases = {}
+        for name, (count, total, mx) in phases.items():
+            base_count, base_total = self._base_phases.get(name, (0, 0.0))
+            c = count - base_count
+            if not c:
+                continue
+            total = total - base_total
+            out_phases[name] = {
+                "count": c,
+                "total_s": round(total, 6),
+                "mean_s": round(total / c, 6),
+                "max_s": round(mx, 6),
+            }
+        return {"counters": out_counters, "phases": out_phases}
+
+    def reset(self) -> None:
+        counters, phases = _collect()
+        self._base_counters = counters
+        self._base_phases = {
+            name: (count, total) for name, (count, total, _) in phases.items()
+        }
 
 
 _GLOBAL = Metrics()

@@ -72,8 +72,9 @@ def test_ingest_and_paillier_modules_are_scanned():
 
 
 def test_no_port_file_loads_a_system_crypto_library():
-    """The port's crypto is its own (sealed boxes and Ed25519 in Python with
-    the native layer's C beside them, Paillier on ``pow``): no file looks up
+    """The port's crypto is its own (sealed boxes, key generation, Ed25519
+    signing and Paillier's modexp in the native layer's C, their plain
+    versions in Python): no file looks up
     a system library by name, and every ctypes load opens
     ``str(library_path(...))``, a library the port built under
     ``build/sda_tpu_torch/`` from its own sources (the kernels from
@@ -97,13 +98,14 @@ def test_no_port_file_loads_a_system_crypto_library():
 C_SOURCES = sorted((ROOT / "sda_tpu_torch").rglob("*.c"))
 #: the C standard library and POSIX threads, and the layer's own sources
 C_HEADERS = ("stddef.h", "stdint.h", "stdlib.h", "string.h", "pthread.h", "sodium_prims.c",
-             "curve25519_comb.c")
+             "curve25519_comb.c", "ed25519.c", "bignum.c")
 
 
 def test_native_sources_are_scanned():
     names = {p.relative_to(ROOT).as_posix() for p in C_SOURCES}
     assert names == {f"sda_tpu_torch/native/{n}.c"
-                     for n in ("_sdanative", "sodium_prims", "curve25519_comb")}
+                     for n in ("_sdanative", "sodium_prims", "curve25519_comb", "ed25519",
+                               "bignum")}
 
 
 @pytest.mark.parametrize("path", C_SOURCES, ids=lambda p: p.name)

@@ -224,3 +224,96 @@ def test_uniform_mod_host_matches_reference(m, shape):
     # the default OS-entropy path: the same shape and range
     draw = trng.uniform_mod_host((1000,), m)
     assert draw.shape == (1000,) and draw.min() >= 0 and int(draw.max()) < m
+
+
+# -- the reference's public names: ids, parameters, the REST handler -----------
+
+
+@pytest.mark.parametrize("cls", ["AgentId", "AggregationId", "SnapshotId", "EncryptionKeyId"])
+def test_typed_id_from_str_matches_reference(cls):
+    text = "5f9b3c1e-2d4a-4b6c-8e0f-1a2b3c4d5e6f"
+    got, want = getattr(tp, cls).from_str(text), getattr(jp, cls).from_str(text)
+    assert type(got) is getattr(tp, cls) and str(got) == str(want) == text
+    assert got == getattr(tp, cls)(text)
+    for package in (tp, jp):
+        with pytest.raises(ValueError, match="unparseable uuid"):
+            getattr(package, cls).from_str("not-a-uuid")
+
+
+REF_VECTOR = (3, 8, 4, 433, 354, 150)  # tests/test_ops_field.py's REF_SCHEME
+
+
+def _packed_cases():
+    """tests/test_ops_field.py:58-76's schemes, and ill-formed variants."""
+    from sda_tpu.ops import find_packed_parameters
+
+    k, n, t, p, w2, w3 = REF_VECTOR
+    cases = {"reference vector": REF_VECTOR}
+    p8, a8, b8 = find_packed_parameters(3, 4, 8, min_modulus_bits=8, seed=0)
+    cases["found at 8 bits"] = (3, 8, 4, p8, a8, b8)
+    big = find_packed_parameters(64, 63, 242, min_modulus_bits=26, seed=0)
+    cases["k=64 t=63 n=242"] = (64, 242, 63, *big)
+    cases["omega_secrets of order 4"] = (k, n, t, p, w2 * w2 % p, w3)
+    cases["omega_shares of order 3"] = (k, n, t, p, w2, pow(w3, 3, p))
+    cases["composite modulus"] = (k, n, t, 435, w2, w3)
+    cases["k + t + 1 not a power of 2"] = (k, n, t + 1, p, w2, w3)
+    cases["n + 1 not a power of 3"] = (k, n + 1, t, p, w2, w3)
+    cases["n below the reconstruction threshold"] = (3, 2, 4, 433, 354, 150)
+    return cases
+
+
+@pytest.mark.parametrize("label", list(_packed_cases()))
+def test_validate_packed_parameters_matches_reference(label):
+    from sda_tpu.ops import validate_packed_parameters as jvalidate
+    from sda_tpu_torch.ops import validate_packed_parameters
+
+    args = _packed_cases()[label]
+    outcomes = []
+    for validate, package in ((jvalidate, jp), (validate_packed_parameters, tp)):
+        try:
+            validate(package.PackedShamirSharing(*args))
+            outcomes.append(None)
+        except ValueError as e:
+            outcomes.append(str(e))
+    assert outcomes[0] == outcomes[1]
+    assert (outcomes[0] is None) == (label in ("reference vector", "found at 8 bits",
+                                               "k=64 t=63 n=242"))
+
+
+@pytest.mark.parametrize("x", [1, 2, 150, 354, 432, 433 + 354, 0])
+def test_element_order_matches_reference(x):
+    from sda_tpu.ops import element_order as jorder
+    from sda_tpu_torch.ops import element_order
+
+    if x == 0:
+        for order in (jorder, element_order):
+            with pytest.raises(ValueError, match="no multiplicative order"):
+                order(0, 433)
+        return
+    assert element_order(x, 433) == jorder(x, 433)
+    p = (1 << 61) - 1
+    assert element_order(x + 5, p) == jorder(x + 5, p)
+
+
+def test_element_order_of_the_reference_vector():
+    from sda_tpu_torch.ops import element_order
+
+    assert element_order(354, 433) == 8 and element_order(150, 433) == 9
+
+
+@pytest.mark.parametrize("target", ["/v1/ping", "/v1/healthz", "/v1/nowhere", "/v1/agents/me"])
+def test_make_handler_answers_as_the_reference(target):
+    """``rest.make_handler`` gives the service's ``Router``, which answers
+    unauthenticated requests as the reference's does."""
+    from sda_tpu.rest import make_handler as jmake_handler
+    from sda_tpu.server import new_mem_server as jnew_mem_server
+    from sda_tpu_torch.rest import make_handler
+    from sda_tpu_torch.rest.server import Router
+    from sda_tpu_torch.server import new_mem_server
+
+    handler = make_handler(new_mem_server())
+    assert isinstance(handler, Router)
+    got = handler.handle("GET", target, {})
+    want = jmake_handler(jnew_mem_server()).handle("GET", target, {})
+    assert (got.status, got.body) == (want.status, want.body)
+    assert handler.handle("PUT", target, {}).status == 501

@@ -138,3 +138,48 @@ def test_verification_agrees_with_libsodium(case):
     want = ref.verify_detached(sig, m, vk)
     assert port.verify_detached(sig, m, vk) is want
     assert want is (label == "valid")
+
+
+# -- key generation and signing at the call sites run the native C -------------
+
+
+def _plain_curve_raises(monkeypatch):
+    def plain(*args, **kwargs):
+        raise AssertionError("the variable-time plain curve arithmetic was reached")
+
+    monkeypatch.setattr(port, "_scalar_mult", plain)
+    monkeypatch.setattr(port, "x25519", plain)
+
+
+@pytest.mark.parametrize("site", ["agent", "encryption key", "signed key"])
+def test_keygen_and_signing_never_reach_the_plain_curve(site, tmp_path, monkeypatch):
+    """With ``crypto.sodium._scalar_mult`` and ``x25519`` made to raise, an
+    agent's signature key, a box keypair and a signed key still come out,
+    from the native layer's constant-time C, and libsodium verifies them;
+    the plain functions the patch covers do raise."""
+    from sda_tpu_torch.client import SdaClient
+    from sda_tpu_torch.crypto import CryptoModule, Keystore
+    from sda_tpu_torch.protocol import canonical_bytes
+
+    _plain_curve_raises(monkeypatch)
+    with pytest.raises(AssertionError, match="plain curve"):
+        port.sign_keypair()
+    with pytest.raises(AssertionError, match="plain curve"):
+        port.box_keypair()
+    keystore = Keystore(tmp_path)
+    agent = SdaClient.new_agent(keystore)
+    crypto = CryptoModule(keystore, device="cpu")
+    vk = agent.verification_key.body.data
+    if site == "agent":
+        sk = keystore.get_signature_keypair(agent.verification_key.id).sk.data
+        assert sk[32:] == vk and ref.verify_detached(ref.sign_detached(b"m", sk), b"m", vk)
+        return
+    key_id = crypto.new_encryption_key()
+    pair = keystore.get_encryption_keypair(key_id)
+    if site == "encryption key":
+        m = _message(100, seed=5)
+        assert ref.seal_open(ref.seal(m, pair.ek.data), pair.ek.data, pair.dk.data) == m
+        return
+    signed = crypto.sign_encryption_key(agent, key_id)
+    assert signed.body.body == pair.ek
+    assert ref.verify_detached(signed.signature.data, canonical_bytes(signed.body), vk)
