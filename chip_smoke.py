@@ -10,8 +10,11 @@ Phases, each reported on its own line:
 2. build: compiles every kernel from ``sda_tpu_torch/csrc`` (seconds, and
    ptxas' register/spill report) and, beside them, the native batch layer
    from ``sda_tpu_torch/native`` with the host's ``cc`` (its seconds and
-   ``cc --version``'s first line), and counts the int8 tensor-core
-   instructions (``IMMA``) in K1's SASS with ``cuobjdump`` (none fails);
+   ``cc --version``'s first line), counts the int8 tensor-core
+   instructions (``IMMA``) in K1's SASS with ``cuobjdump`` (none fails),
+   and K2's integer instructions per 64-byte block by family (``LOP3``,
+   ``SHF``, ``PRMT``, ``IADD3``, ``IMAD``, ``VIADD``) in its kernel's body,
+   on the ``build`` line: K2's operations bound is reckoned from them;
 3. parity: each kernel against its plain PyTorch version on the card, at the
    main path's full-width shape and at ragged shapes, bit-identical: K1 the
    limb share-and-reduce through both of its entries (the ``(C, nb, K)``
@@ -38,7 +41,9 @@ Phases, each reported on its own line:
    of a few folds (kernel against the torch compaction);
 7. numbers: launch counts of each path's run, each kernel's own device time
    per launch at the chunk shape (``torch.profiler``), its wrapper's and its
-   plain version's times (CUDA events), the bound, the paths' wall times;
+   plain version's times (CUDA events), K2's time by CUDA events over
+   back-to-back launches of its C entry (``event_ms``, here and at every
+   later K2 ``numbers`` line), the bound, the paths' wall times;
 8. sum-first: bench.py's sum-first stream with its full check and finalize
    at its two presets, uncut: quick (100,000 x 10,000 in chunks of 2,000,
    31-bit p, int32 draws) and the north star (1,000,000 x 100,000 in
@@ -218,10 +223,21 @@ Phases, each reported on its own line:
    and covering half of it, the critical path inside the round, one K2
    launch, the sum against numpy's; K2 against its plain version at the
    fold's shape.
+23. riders: ``python -m sda_tpu_torch.bench --engine participant --kernel``
+   as a user runs it, with ``bench.py``'s eleven protocol-plane riders
+   (``sda_tpu_torch/riders``) on at their default sizes before the device
+   run, artifacts in a temporary directory. One ``rider`` line per rider
+   (its seconds, rates, ratios, RSS, per-shard counts, sketch headroom),
+   then a ``riders`` line and its checks: all eleven present, none with an
+   error, every exactness flag true, one artifact per banking rider and
+   none in ``bench-artifacts/``, CUDA uninitialised until the sketch rider
+   (the only one whose clients compute on the card), and the metric line
+   verified with K1 launched 50 times and K2 never.
 
 Then the ``{"kernels": [...]}`` line (launches: K1's on the main path, the
-fabrics, the FedAvg round, the bench's K1 route, the ladder's config 3 and
-the model rounds, K2's on the masked path, the fabrics, the FedAvg round,
+fabrics, the FedAvg round, the bench's K1 route in phases 11 and 23, the
+ladder's config 3 and the model rounds, K2's on the masked path, the
+fabrics, the FedAvg round,
 the model rounds, the sealed round, the trainer rounds, the REST round,
 the tier round, the ingest round and the flight round),
 and last ``{"ok":
@@ -248,16 +264,20 @@ from sda_tpu_torch import bench
 from sda_tpu_torch.bench import HBM_BYTES_PER_S, INT8_OPS_PER_S, sumfirst_finalize, sumfirst_stream
 
 # 32-bit integer lanes of an H100 SM per clock: 4 schedulers issue one 32-lane
-# warp instruction each (128); logic ops and funnel shifts run only on the
-# 64-lane INT pipe, adds also on the 64-lane FMA pipe (as IMAD). Rates are
-# these times the SM count and the card's maximum SM clock.
+# warp instruction each (128); logic ops (LOP3), funnel shifts (SHF), byte
+# permutes (PRMT) and IADD3 run only on the 64-lane INT pipe, IMAD (which
+# ptxas also uses for adds and moves, as IMAD.IADD and IMAD.MOV) on the
+# 64-lane FMA pipe. Rates are these times the SM count and the card's
+# maximum SM clock.
 ISSUE_LANES_PER_SM = 128
 INT_PIPE_LANES_PER_SM = 64
-# ChaCha20 per 64-byte block: 80 quarter rounds x (4 adds + 4 xors + 4
-# rotates, one funnel shift each) + 16 feed-forward adds; the xors and
-# funnel shifts are the INT-pipe-only share
-CHACHA_OPS_PER_BLOCK = 80 * 12 + 16
-CHACHA_INT_PIPE_OPS_PER_BLOCK = 80 * 8
+# K2 runs one thread per 64-byte block, straight-line, so its per-block
+# instruction counts are read off its SASS in phase 2 (``sass_counts``) and
+# held here for ``_k2_bound``: the integer families counted, the INT-pipe
+# ones among them
+K2_SASS_FAMILIES = ("LOP3", "SHF", "PRMT", "IADD3", "IMAD", "VIADD")
+INT_PIPE_FAMILIES = ("LOP3", "SHF", "PRMT", "IADD3")
+K2_PER_BLOCK: dict = {}
 
 PARTICIPANTS, DIM, CHUNK = 100_000, 10_000, 2_000
 K_SECRETS, THRESHOLD, CLERKS = 5, 2, 8
@@ -368,6 +388,42 @@ def _profiled(fn, iters: int, kernel: str) -> tuple[int, float]:
     return sum(e.count for e in own), sum(e.self_device_time_total for e in own) / 1e3
 
 
+def _k2_event_ms(keys, n_blocks: int, iters: int = 50, windows: int = 2) -> list:
+    """K2's device time per launch at ``keys`` x ``n_blocks`` by CUDA events
+    around ``iters`` back-to-back launches of its C entry into one output
+    (no wrapper, no allocation between them), per window: the profiler's
+    records, which drop some kernels, are not needed for it. These launches
+    are timing only and count nowhere."""
+    import torch
+
+    from sda_tpu_torch import kernels
+    from sda_tpu_torch.ops.chacha_cuda import kernel_keys
+
+    packed = kernel_keys(keys)
+    P = packed.shape[0]
+    out = torch.empty((P, n_blocks, 16), dtype=torch.int32, device=packed.device)
+    launch = kernels.load("chacha20").chacha20_launch
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(count):
+        for _ in range(count):
+            if launch(packed.data_ptr(), 0, n_blocks, P, out.data_ptr(), stream):
+                raise RuntimeError("chacha20 launch failed")
+
+    run(3)  # warm
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        run(iters)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / iters)
+    return times
+
+
 PROFILER_WINDOWS = 5
 
 
@@ -406,24 +462,67 @@ def _k1_bound(secrets, rand, stacks):
 
 def _k2_bound(seeds: int, n_blocks: int, sm_clocks_per_ms: float):
     """K2's work for ``seeds`` x ``n_blocks`` keystream blocks and the least
-    time it could take: keys read once, blocks written once; the operations
-    at the card's maximum SM clock, the INT-pipe-only xors and funnel shifts
-    on 64 lanes per SM and all operations on 128, whichever takes longer.
-    Returns (bytes, ops, int_pipe_ops, bytes_ms, ops_ms)."""
+    time it could take: keys read once, blocks written once; the integer
+    instructions that K2's SASS issues per block (``K2_PER_BLOCK``, counted
+    in phase 2) at the card's maximum SM clock, the INT-pipe ones on 64
+    lanes per SM, the FMA pipe's IMADs on 64 and all of them on 128,
+    whichever takes longer. Returns (bytes, ops, int_pipe_ops, bytes_ms,
+    ops_ms)."""
+    if not K2_PER_BLOCK:
+        raise RuntimeError("K2's SASS has not been counted (phase 2)")
     blocks = seeds * n_blocks
     moved = seeds * 8 * 4 + blocks * 64
-    ops, int_ops = blocks * CHACHA_OPS_PER_BLOCK, blocks * CHACHA_INT_PIPE_OPS_PER_BLOCK
-    ops_ms = max(int_ops / INT_PIPE_LANES_PER_SM, ops / ISSUE_LANES_PER_SM) / sm_clocks_per_ms
-    return moved, ops, int_ops, moved / HBM_BYTES_PER_S * 1e3, ops_ms
+    ops, int_ops = blocks * K2_PER_BLOCK["issue"], blocks * K2_PER_BLOCK["int_pipe"]
+    fma_ops = blocks * K2_PER_BLOCK["IMAD"]
+    clocks = max(int_ops / INT_PIPE_LANES_PER_SM, fma_ops / INT_PIPE_LANES_PER_SM,
+                 ops / ISSUE_LANES_PER_SM)
+    return moved, ops, int_ops, moved / HBM_BYTES_PER_S * 1e3, clocks / sm_clocks_per_ms
+
+
+def _sass(library) -> str:
+    """A built library's SASS (``cuobjdump``)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    return subprocess.run([tool, "--dump-sass", str(library)], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
 
 
 def _sass_count(library, opcode: str) -> int:
-    """Instructions of ``opcode`` in a built library's SASS (``cuobjdump``)."""
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "--dump-sass", str(library)], check=True,
-                          capture_output=True, text=True, timeout=120).stdout
-    return sum(1 for text in sass.splitlines() if f" {opcode}" in text)
+    """Instructions of ``opcode`` in a built library's SASS."""
+    return sum(1 for text in _sass(library).splitlines() if f" {opcode}" in text)
+
+
+_SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+
+
+def sass_counts(sass: str, function: str, families) -> tuple[dict, dict]:
+    """Instructions per opcode family (``IMAD`` covers ``IMAD.IADD``,
+    ``IMAD.MOV.U32``, ...) in the SASS of the one function whose name holds
+    ``function``: ``(body, after)``, the body from its entry to its last
+    unpredicated ``EXIT``, and what follows it (subroutines such as the
+    64-bit division's, reached by ``CALL`` only on a slow path)."""
+    code, inside = [], False  # (opcode, predicated) in address order
+    for text in sass.splitlines():
+        if "Function :" in text:
+            inside = function in text
+            continue
+        m = _SASS_LINE.match(text)
+        if inside and m:
+            instruction = m.group(2)
+            predicated = instruction.startswith("@")
+            if predicated:
+                instruction = instruction.split(None, 1)[1]
+            code.append((instruction.split()[0], predicated))
+    if not code:
+        raise ValueError(f"no SASS for a function named like {function!r}")
+    exits = [i for i, (op, predicated) in enumerate(code) if op == "EXIT" and not predicated]
+    last = exits[-1] if exits else len(code) - 1
+    body, after = dict.fromkeys(families, 0), dict.fromkeys(families, 0)
+    for i, (op, _) in enumerate(code):
+        family = op.split(".")[0]
+        if family in body:
+            (body if i <= last else after)[family] += 1
+    return body, after
 
 
 def sumfirst_phase(card: str, dev, seed: int) -> None:
@@ -1026,8 +1125,9 @@ def fedavg_phase(card: str, dev, seed: int, main_scheme, sm_clocks_per_ms: float
     k2_plain = _time_ms(lambda: chacha_blocks_torch(keys, 0, n_blocks), iters=2)
     moved, ops, int_ops, bytes_ms, ops_ms = _k2_bound(FEDAVG_CHUNK, n_blocks, sm_clocks_per_ms)
     _line("numbers", kernel="chacha20", path="fedavg round", shape=[FEDAVG_CHUNK, n_blocks, 16],
-          wrapper_ms=k2_wrapper, profiler={"launches_seen": seen, "of": 10,
-                                           "ms_per_seen": seen_ms / seen if seen else None},
+          event_ms=_k2_event_ms(keys, n_blocks), wrapper_ms=k2_wrapper,
+          profiler={"launches_seen": seen, "of": 10,
+                    "ms_per_seen": seen_ms / seen if seen else None},
           plain_ms=k2_plain, bytes=moved, int32_ops=ops, int_pipe_ops=int_ops,
           bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms,
           launches=launches["chacha20"], card=card)
@@ -1380,8 +1480,9 @@ def model_rounds_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     seen, seen_ms = _profiled(k2, 10, "chacha20")
     moved, ops, int_ops, bytes_ms, ops_ms = _k2_bound(P, n_blocks, sm_clocks_per_ms)
     _line("numbers", kernel="chacha20", path="model rounds", shape=[P, n_blocks, 16],
-          wrapper_ms=k2_wrapper, profiler={"launches_seen": seen, "of": 10,
-                                           "ms_per_seen": seen_ms / seen if seen else None},
+          event_ms=_k2_event_ms(keys, n_blocks), wrapper_ms=k2_wrapper,
+          profiler={"launches_seen": seen, "of": 10,
+                    "ms_per_seen": seen_ms / seen if seen else None},
           plain_ms=k2_plain, bytes=moved, int32_ops=ops, int_pipe_ops=int_ops,
           bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
           launches=k2_total, card=card)
@@ -1454,14 +1555,16 @@ def bench_phase(card: str) -> int:
         if args.kernel:
             k1 = launches["limb_share_sum"]
     torch.cuda.empty_cache()  # the subprocesses share the card with this one
+    # the device plane only: the nine protocol-plane riders run in phase 23
+    quiet = {**os.environ, "SDA_BENCH_RIDERS": "0"}
     for label, argv in BENCH_CLI_RUNS.items():
-        rc, line, err = _bench_cli(argv)
+        rc, line, err = _bench_cli(argv, env=quiet)
         decomposition = (line or {}).get("roofline", {}).get("decomposition", {})
         if line is not None:
             _line("bench", run=label, argv=argv, rc=rc, **line)
         if rc != 0 or not (line or {}).get("verified") or "binding_stage" not in decomposition:
             raise AssertionError(f"bench {label}: rc {rc}, line {line}; stderr tail:\n{err[-3000:]}")
-    env = {**os.environ, "SDA_BENCH_INJECT_FAULT": "1"}
+    env = {**quiet, "SDA_BENCH_INJECT_FAULT": "1"}
     rc, line, err = _bench_cli(BENCH_FAULT_RUN, env=env)
     caught = rc == 1 and "verification failed" in (line or {}).get("error", "")
     _line("bench fault", argv=BENCH_FAULT_RUN, rc=rc, line=line, caught=caught, card=card)
@@ -2130,8 +2233,9 @@ def _k2_at_fold(card: str, dev, folds, dim: int, p: int, sm_clocks_per_ms: float
     seen, seen_ms = _profiled(k2, 10, "chacha20")
     moved, ops, int_ops, bytes_ms, ops_ms = _k2_bound(keys.shape[0], n_blocks, sm_clocks_per_ms)
     _line("numbers", kernel="chacha20", path=path, shape=[keys.shape[0], n_blocks, 16],
-          wrapper_ms=k2_wrapper, profiler={"launches_seen": seen, "of": 10,
-                                           "ms_per_seen": seen_ms / seen if seen else None},
+          event_ms=_k2_event_ms(keys, n_blocks), wrapper_ms=k2_wrapper,
+          profiler={"launches_seen": seen, "of": 10,
+                    "ms_per_seen": seen_ms / seen if seen else None},
           plain_ms=k2_plain, bytes=moved, int32_ops=ops, int_pipe_ops=int_ops,
           bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
           launches=launches, card=card)
@@ -2435,8 +2539,9 @@ def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     seen, seen_ms = _profiled(k2, 10, "chacha20")
     moved, ops, int_ops, bytes_ms, ops_ms = _k2_bound(keys.shape[0], n_blocks, sm_clocks_per_ms)
     _line("numbers", kernel="chacha20", path="trainer rounds", shape=[keys.shape[0], n_blocks, 16],
-          wrapper_ms=k2_wrapper, profiler={"launches_seen": seen, "of": 10,
-                                           "ms_per_seen": seen_ms / seen if seen else None},
+          event_ms=_k2_event_ms(keys, n_blocks), wrapper_ms=k2_wrapper,
+          profiler={"launches_seen": seen, "of": 10,
+                    "ms_per_seen": seen_ms / seen if seen else None},
           plain_ms=k2_plain, bytes=moved, int32_ops=ops, int_pipe_ops=int_ops,
           bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
           launches=k2_total, card=card)
@@ -3590,6 +3695,156 @@ def flight_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     return launches, k2_err
 
 
+# phase 23: the protocol-plane riders as a user runs them, before the device
+# run of the bench's K1 route, every size at the reference's default, the
+# artifacts banked in a temporary directory
+RIDER_ARGV = ["--engine", "participant", "--kernel"]
+RIDER_TIMEOUT_S = 900
+# K1 once a chunk of the participant preset (100,000 / 2,000), K2 never: the
+# riders' folds stay on the host, below the device fold's threshold
+RIDER_LAUNCHES = {"limb_share_sum": 50, "chacha20": 0}
+HOST_PLANE_KEYS = {"crypto_plane": "seals_per_s", "rest_ingest": "participations_per_s"}
+RIDER_KEYS = ("ingest", "wire", "clerking", "reveal", "committee", "shard", "replication", "tier",
+              "sketch")
+# the flags a rider's exactness checks leave in its result, every one true
+EXACT_FLAGS = ("exact", "reveals_exact", "identical_reveals", "identical_to_serial", "byte_exact")
+
+
+def _exact_flags(entry) -> list:
+    """Every exactness flag anywhere in a rider's result."""
+    if not isinstance(entry, dict):
+        return []
+    flags = [value for key, value in entry.items() if key in EXACT_FLAGS]
+    for value in entry.values():
+        flags += _exact_flags(value)
+    return flags
+
+
+def _per(legs: dict, field: str) -> dict:
+    return {tag: leg.get(field) for tag, leg in legs.items()}
+
+
+def _rider_headline(key: str, crypto: dict) -> dict:
+    """The numbers a rider line carries: rates, seconds, ratios, RSS,
+    per-shard counts, sketch headroom."""
+    if key == "crypto_plane":
+        return {k: crypto.get(k) for k in (
+            "seals_per_s", "opens_per_s", "seals_per_s_4k", "seals_per_s_40k", "seal_batch_vs_scalar",
+            "chacha_expand_elems_per_s", "chacha_combine_elems_per_s", "varint_encode_per_s",
+            "varint_decode_per_s")}
+    if key == "rest_ingest":
+        return {"participations_per_s": crypto.get("participations_per_s")}
+    entry = crypto[key]
+    if key == "ingest":
+        return {k: entry.get(k) for k in (
+            "seal_batch_per_s", "seal_scalar_per_s", "seal_participations_seals_per_s", "build_per_s",
+            "participate_many_per_s", "telemetry_overhead_pct", "rest_sqlite_singles_per_s",
+            "rest_sqlite_batch_per_s", "rest_mem_singles_per_s", "rest_mem_batch_per_s")}
+    if key == "wire":
+        legs = {w: entry[w] for w in ("json", "binary")}
+        return {"n": entry["n_participants"], "ingest_per_s": _per(legs, "ingest_per_s"),
+                "clerking_fetch_per_s": _per(legs, "clerking_fetch_per_s"),
+                "reveal_per_s": _per(legs, "reveal_per_s"), "peak_rss_mib": _per(legs, "peak_rss_mib"),
+                "bytes": {w: {k: v for k, v in leg.items() if k.startswith("bytes_")}
+                          for w, leg in legs.items()},
+                "binary_vs_json": {k: entry[f"{k}_binary_vs_json"]
+                                   for k in ("ingest", "clerking_fetch", "reveal")},
+                "rss_flat": entry["rss_flat"]}
+    if key in ("clerking", "reveal"):
+        configs = entry["configs"]
+        return {"n": entry["n_participants"], "seed_s": entry["seed_s"],
+                "encryptions_per_s": _per(configs, "encryptions_per_s"),
+                "wall_s": _per(configs, "wall_s"), "peak_rss_mib": _per(configs, "peak_rss_mib"),
+                "overlap_efficiency": _per(configs, "overlap_efficiency")}
+    if key == "committee":
+        return {"n": entry["n_participants"], "seed_s": entry["seed_s"],
+                "native_threads": entry["planes"]["clerking"]["w1"]["native_threads"],
+                **{f"{plane}_per_s": _per(configs, "per_s") for plane, configs in entry["planes"].items()},
+                "read_pool_reads_per_s": _per(entry["read_pool"], "reads_per_s")}
+    if key == "shard":
+        return {"n": entry["n_participations"], "ingest_per_s": _per(entry["legs"], "ingest_per_s"),
+                "ingest_s": _per(entry["legs"], "ingest_s"),
+                "shard_requests": _per(entry["legs"], "shard_requests"),
+                "scaling_k2_vs_k1": entry["scaling_k2_vs_k1"],
+                "scaling_k4_vs_k1": entry["scaling_k4_vs_k1"]}
+    if key == "replication":
+        return {"n": entry["n_participations"], "ingest_per_s": _per(entry["legs"], "ingest_per_s"),
+                "r2_ingest_overhead_pct": entry["r2_ingest_overhead_pct"]}
+    if key == "tier":
+        ab = entry["promotion_ab"]
+        return {"n": entry["n_participants"],
+                "max_job_participations": _per(entry["configs"], "max_job_participations"),
+                "wall_s": _per(entry["configs"], "wall_s"),
+                "per_job_stage_s": _per(entry["configs"], "per_job_stage_s"),
+                "per_node_promotion_s": _per(ab, "per_node_promotion_s"),
+                "ab_wall_s": _per(ab, "wall_s")}
+    legs = {**entry["families"]["countmin"]["legs"], **entry["families"]["cardinality"]["legs"]}
+    return {"abs_err": {tag: leg.get("max_err", leg.get("abs_err")) for tag, leg in legs.items()},
+            "bound_headroom": _per(legs, "bound_headroom"),
+            "within_bound": _per(legs, "within_bound"), "items_per_s": _per(legs, "items_per_s")}
+
+
+def riders_phase(card: str) -> int:
+    """Phase 23: ``python -m sda_tpu_torch.bench --engine participant
+    --kernel`` with the eleven protocol-plane riders on, at their default
+    sizes, artifacts in a temporary directory. One ``rider`` line per rider
+    with its headline numbers, then a ``riders`` line with the checks: all
+    eleven present, none with an error, every exactness flag true, one
+    artifact per banking rider, none written into ``bench-artifacts/``,
+    CUDA uninitialised until the sketch rider, and the metric line verified
+    with K1 launched once per chunk and K2 never. Returns K1's launches."""
+    import tempfile
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SDA_BENCH_")}
+    earlier = Path(__file__).resolve().parent / "bench-artifacts"
+    earlier_files = sorted(earlier.iterdir()) if earlier.is_dir() else []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc, out, err = _module_cli("sda_tpu_torch.bench", [*RIDER_ARGV, "--artifacts", tmp],
+                                   RIDER_TIMEOUT_S, env)
+        wall_s = time.perf_counter() - t0
+        banked = sorted(name.split("-", 1)[0] for name in os.listdir(tmp))
+    lines = out.strip().splitlines()
+    line = json.loads(lines[-1]) if lines else {}
+    metric_lines = len(lines) - 1
+    crypto = line.get("crypto", {})
+    seconds = line.get("riders", {}).get("seconds", {})
+    errors = {key: entry["error"] for key, entry in crypto.items()
+              if isinstance(entry, dict) and "error" in entry}
+    missing = [key for key, field in HOST_PLANE_KEYS.items() if field not in crypto]
+    missing += [key for key in RIDER_KEYS if key not in crypto]
+    flags = {}
+    for key in (*HOST_PLANE_KEYS, *RIDER_KEYS):
+        if key in missing or key in errors:
+            continue
+        entry = crypto.get(key, {})
+        flags[key] = _exact_flags(entry)
+        _line("rider", rider=key, seconds=seconds.get(key), exact_flags=len(flags[key]),
+              exact=all(flags[key]), **_rider_headline(key, crypto), card=card)
+    launches = line.get("launches", {})
+    checks = {
+        "rc_0": rc == 0,
+        "verified": bool(line.get("verified")),
+        "all_present": not missing,
+        "no_rider_error": not errors,
+        "exact": all(all(f) for f in flags.values()),
+        "launches": launches == RIDER_LAUNCHES,
+        "artifacts_banked": set(banked) >= {*RIDER_KEYS, "telemetry"},
+        "bench_artifacts_untouched": (sorted(earlier.iterdir()) if earlier.is_dir() else []) == earlier_files,
+        # only the sketch rider's clients compute on the card (its
+        # FederatedAveraging dequantizes there), and it runs last
+        "riders_before_cuda": not any(
+            initialized for key, initialized in line.get("riders", {}).get(
+                "cuda_initialized_after", {"": True}).items() if key != "sketch"),
+    }
+    _line("riders", argv=RIDER_ARGV, rc=rc, wall_s=wall_s, riders_s=sum(seconds.values()),
+          metric_lines=metric_lines, launches=launches, value=line.get("value"),
+          missing=missing, errors=errors, artifacts=banked, checks=checks, card=card)
+    if not all(checks.values()):
+        raise AssertionError(f"riders: checks {checks}; stderr tail:\n{err[-3000:]}")
+    return launches["limb_share_sum"]
+
+
 def _query_gpu(field: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader,nounits"],
@@ -3666,9 +3921,18 @@ def main(argv=None) -> int:
         raise native_build["error"]
     cc_version = subprocess.run([native.compiler(), "--version"], check=True, capture_output=True,
                                 text=True, timeout=60).stdout.splitlines()[0]
-    _line("build", seconds=time.perf_counter() - t0, kernels=sorted(kernels.KERNELS),
+    build_s = time.perf_counter() - t0
+    # K2's integer instructions per 64-byte block, for its operations bound
+    k2_body, k2_after = sass_counts(_sass(kernels.library_path("chacha20")), "chacha20_kernel",
+                                    K2_SASS_FAMILIES)
+    K2_PER_BLOCK.update(k2_body, int_pipe=sum(k2_body[f] for f in INT_PIPE_FAMILIES),
+                        issue=sum(k2_body.values()))
+    _line("build", seconds=build_s, kernels=sorted(kernels.KERNELS),
           native={"seconds": native_build["seconds"], "library": native.library_path().name,
-                  "cc": native.compiler(), "cc_version": cc_version})
+                  "cc": native.compiler(), "cc_version": cc_version},
+          k2_sass_per_block=K2_PER_BLOCK, k2_sass_after_body=k2_after)
+    if not K2_PER_BLOCK["int_pipe"]:
+        raise AssertionError("chacha20's SASS holds no INT-pipe instruction: the count is broken")
     for name, report in reports.items():
         for text in report.strip().splitlines():
             print(f"ptxas[{name}]: {text}", flush=True)
@@ -3961,7 +4225,8 @@ def main(argv=None) -> int:
     moved2, ops2, int_ops2, bytes2_ms, ops2_ms = _k2_bound(CHUNK, chunk_blocks, sm_clocks_per_ms)
     kernel2_ms, plain2_ms = min(kernel2_a, kernel2_b), min(plain2_a, plain2_b)
     _line("numbers", kernel="chacha20", shape=[CHUNK, chunk_blocks, 16],
-          kernel_ms=[kernel2_a, kernel2_b], wrapper_ms=wrapper2, plain_ms=[plain2_a, plain2_b],
+          kernel_ms=[kernel2_a, kernel2_b], event_ms=_k2_event_ms(chunk_keys, chunk_blocks),
+          wrapper_ms=wrapper2, plain_ms=[plain2_a, plain2_b],
           bytes=moved2, int32_ops=ops2, int_pipe_ops=int_ops2, sms=sms, max_sm_clock_mhz=clock_mhz,
           bound_ms=max(bytes2_ms, ops2_ms), bytes_ms=bytes2_ms, ops_ms=ops2_ms, library_ms=None,
           launches=masked_launches["chacha20"], reveal_launches=reveal_launches, card=card)
@@ -3995,6 +4260,9 @@ def main(argv=None) -> int:
     ingest_k2, ingest_k2_err = ingest_paillier_phases(card, dev, args.seed, sm_clocks_per_ms)
     # -- 22. phase 14's round once more, traced, logged and read by the flight recorder
     flight_k2, flight_k2_err = flight_phase(card, dev, args.seed, sm_clocks_per_ms)
+    # -- 23. the bench's protocol-plane riders, then its K1 route, as a user runs it
+    torch.cuda.empty_cache()  # the subprocess shares the card with this one
+    riders_k1 = riders_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",
@@ -4002,7 +4270,7 @@ def main(argv=None) -> int:
         "source": "sda_tpu_torch/csrc/limb_share_sum.cu",
         "replaces": "sda_tpu/parallel/limb_pallas.py:31",
         "launches": (launches + fabric_launches["limb_share_sum"] + fedavg_k1 + bench_k1 + ladder_k1
-                     + model_k1),
+                     + model_k1 + riders_k1),
         "max_abs_err": max(max_err, fedavg_k1_err, ladder_k1_err, model_k1_err),
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -28,6 +28,16 @@ error-tagged line and exits 1; any other failure exits 2.
 
 The entry runs on CUDA unless ``--device cpu`` is given, and raises without
 a GPU. The bench's data is drawn from a ``torch.Generator`` seeded 42.
+
+Before the device run, and before its ``--deadline`` is armed, the
+protocol-plane riders (``sda_tpu_torch/riders``, bench.py's riders) measure
+the host planes: the crypto plane and the REST ingest always, then nine
+riders unless ``SDA_BENCH_RIDERS=0``. Each prints its own metric lines, and
+their results ride under ``crypto`` on the final line, success or error. A
+failing rider never stops the device run: its entry becomes ``{"error":
+"<Type>: <message>"}`` and its traceback goes to stderr. Their artifacts go
+to ``bench-artifacts-torch/`` (``--artifacts DIR`` elsewhere,
+``SDA_BENCH_ARTIFACTS=0`` nowhere).
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ import traceback
 import numpy as np
 import torch
 
+from . import riders, telemetry
 from .device import resolve_device
 from .ops import chacha_cuda, find_packed_parameters
 from .ops.chacha import chacha_blocks_torch, expand_seed
@@ -74,6 +85,20 @@ from .parallel.sumfirst import (
     value_limb_sums_chunk_pair,
 )
 from .protocol import PackedShamirSharing
+from .riders import (  # noqa: F401 - bench.py's names: bench.measure_wire_transport
+    RUN_TRACE_ID,
+    measure_batched_ingest,
+    measure_clerking_pipeline,
+    measure_committee_scaling,
+    measure_crypto_plane,
+    measure_replication_overhead,
+    measure_rest_ingest,
+    measure_reveal_pipeline,
+    measure_shard_scaling,
+    measure_sketch_accuracy,
+    measure_tier_fanout,
+    measure_wire_transport,
+)
 from .utils.metrics import torch_trace
 
 METRIC_NAME = "packed_shamir_secure_sum_throughput_single_chip"
@@ -440,6 +465,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "replaced by a fill, and attribute the steady time to the stages")
     parser.add_argument("--device", default=None,
                         help="torch device (default: CUDA; raises without a GPU)")
+    parser.add_argument("--artifacts", default=None, metavar="DIR",
+                        help="bank the riders' artifacts in DIR (default: bench-artifacts-torch/)")
     args = parser.parse_args(argv)
     if args.engine is None:
         args.engine = "participant" if args.no_limbs else "sumfirst"
@@ -479,23 +506,62 @@ def card_and_power_limit(dev: torch.device):
 
 class FinalLine:
     """Exactly one metric line on stdout, whichever thread gets there first
-    (the main thread, the deadline or the decomposition's bail timer)."""
+    (the main thread, the deadline or the decomposition's bail timer).
+    ``fields`` (the riders' results) ride on it, success or error."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._done = False
+        self.fields: dict = {}
 
     def emit(self, line: dict) -> bool:
         with self._lock:
             if self._done:
                 return False
             self._done = True
+        line.setdefault("trace_id", RUN_TRACE_ID)
+        for key, value in self.fields.items():
+            line.setdefault(key, value)
         print(json.dumps(line), flush=True)
         return True
 
 
 def error_line(msg: str) -> dict:
     return {"metric": METRIC_NAME, "value": 0, "unit": "shared_elements_per_second", "error": msg}
+
+
+def run_riders(device=None) -> dict:
+    """The host planes (bench.py:3958-4022) as the metric line's fields:
+    under ``crypto`` the crypto plane and the REST ingest merged in, then
+    the nine riders under their keys unless ``SDA_BENCH_RIDERS=0``; under
+    ``riders`` each plane's seconds and whether CUDA was initialised once it
+    was done (they sample the process's RSS, which a CUDA context would
+    swell). A rider that raises leaves ``{"error": "<Type>: <message>"}``
+    under its key and its traceback on stderr, and the next one runs."""
+    telemetry.set_trace_id(RUN_TRACE_ID)
+    crypto, seconds, cuda_after = {}, {}, {}
+
+    def attempt(key, label, call):
+        t0 = time.perf_counter()
+        try:
+            with riders.stage(label):
+                return call()
+        except Exception as exc:  # noqa: BLE001 - a rider never stops the device run
+            traceback.print_exc()
+            _log(f"{label} failed: {exc}")
+            return {key: {"error": f"{type(exc).__name__}: {exc}"}}
+        finally:
+            seconds[key] = time.perf_counter() - t0
+            cuda_after[key] = torch.cuda.is_initialized()
+
+    for key, label, rider in riders.HOST_PLANES:
+        crypto.update(attempt(key, label, rider))
+    if os.environ.get("SDA_BENCH_RIDERS") == "0":
+        _log("protocol-plane riders skipped (SDA_BENCH_RIDERS=0)")
+    else:
+        for key, label, rider in riders.RIDERS:
+            crypto.update(attempt(key, label, lambda: {key: rider(device=device)}))
+    return {"crypto": crypto, "riders": {"seconds": seconds, "cuda_initialized_after": cuda_after}}
 
 
 def arm_deadline(seconds: float, final: FinalLine):
@@ -749,6 +815,17 @@ def _decompose(make_body, segment, args, seg_times, final, result, budget_left: 
 def main(argv=None) -> int:
     args = parse_args(argv)
     final = FinalLine()
+    try:
+        # a missing GPU fails before the riders, not after them
+        resolve_device(args.device)
+    except Exception as exc:  # noqa: BLE001 - the metric-line contract
+        final.emit(error_line(f"{type(exc).__name__}: {exc}"))
+        return 2
+    if args.artifacts:
+        riders.set_artifacts_dir(args.artifacts)
+    # the host planes first: they must not eat the device run's deadline,
+    # and no CUDA context may swell the RSS that they sample
+    final.fields.update(run_riders(args.device))
     watchdog = arm_deadline(args.deadline, final)
     try:
         result = run(args, final, watchdog)

@@ -21,7 +21,6 @@ from __future__ import annotations
 from typing import Optional
 
 from .. import telemetry
-from ..ops.modular import WIDE_MAX_MODULUS
 from ..protocol import (
     AdditiveSharing,
     AggregationStatus,
@@ -43,6 +42,11 @@ from ..protocol import (
 from ..protocol import tiers as tiers_mod
 from . import snapshot as snapshot_mod
 from . import stores
+
+#: ``ops.modular.WIDE_MAX_MODULUS``, the wide field math's exactness bound,
+#: restated: importing ``ops`` loads torch, which the coordination server
+#: (``sdad``) otherwise never needs
+WIDE_MAX_MODULUS = 1 << 62
 
 
 class SdaServer:

@@ -56,6 +56,8 @@ def _plain_sum(secrets, p):
 
 
 def _cli(argv, env=None):
+    # the device plane only: the protocol-plane riders have their own tests
+    env = {**(env or os.environ), "SDA_BENCH_RIDERS": "0", "SDA_BENCH_ARTIFACTS": "0"}
     out = subprocess.run([sys.executable, "-m", "sda_tpu_torch.bench", *argv], cwd=ROOT,
                          capture_output=True, text=True, timeout=300, env=env)
     return out.returncode, out.stdout.strip().splitlines(), out.stderr
@@ -229,6 +231,7 @@ def test_failed_parity_item_fails_the_run(monkeypatch, capsys):
     error line naming the item and exit 1, before any stream runs."""
     real = bench.limb_cuda.share_combine_limb_cuda
     monkeypatch.setattr(bench.limb_cuda, "share_combine_limb_cuda", lambda *a, **k: real(*a, **k) + 1)
+    monkeypatch.setenv("SDA_BENCH_RIDERS", "0")
     assert bench.main(["--device", "cpu", "--participants", "400", "--dim", "30", "--chunk", "100"]) == 1
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["value"] == 0 and line["error"].startswith("parity limb")

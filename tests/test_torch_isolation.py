@@ -1,9 +1,10 @@
 """The port stands alone: no module of ``sda_tpu_torch`` nor ``chip_smoke.py``
 imports ``jax``, ``sda_tpu`` or ``requests`` (which the card's machine may
-lack), none loads a system crypto library (``libcrypto``, ``libsodium``) and
-the native layer's C sources include, declare and open none; entry points
-default to CUDA and raise without it; ``chip_smoke.py`` fails on a host
-without a GPU."""
+lack), or names a module of ``sda_tpu`` in a string (a ``-m`` argument, an
+``import_module`` name), none loads a system crypto library (``libcrypto``,
+``libsodium``) and the native layer's C sources include, declare and open
+none; entry points default to CUDA and raise without it; ``chip_smoke.py``
+fails on a host without a GPU."""
 
 import ast
 import os
@@ -44,6 +45,40 @@ def test_no_jax_or_reference_imports(path):
         assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {name}"
 
 
+#: ``sda_tpu`` or ``sda_tpu.<module>`` as a token: not ``sda_tpu_torch``, not
+#: a path such as ``sda_tpu/ops/chacha_pallas.py``
+REFERENCE_MODULE = re.compile(r"(?<![\w/.])sda_tpu(?:\.\w+)*(?![\w/])")
+
+
+def _docstrings(tree) -> set:
+    nodes = (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)
+    return {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, nodes) and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_string_names_a_reference_module(path):
+    """A string that names a module of the JAX package (the reference's
+    shard rider spawns ``-m sda_tpu.cli.sdad``) would run the reference from
+    the port: no string literal but a docstring may name one."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = _docstrings(tree)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs:
+            found = REFERENCE_MODULE.search(node.value)
+            assert not found, f"{path.relative_to(ROOT)}:{node.lineno} names {found.group(0)}"
+
+
+@pytest.mark.parametrize("text, names", [
+    ("sda_tpu.cli.sdad", True), ("-m sda_tpu.cli.sdad", True), ("sda_tpu", True),
+    ("sda_tpu_torch.cli.sdad", False), ("sda_tpu/ops/chacha_pallas.py:47", False),
+    ("bench-artifacts-torch", False),
+])
+def test_reference_module_pattern(text, names):
+    assert bool(REFERENCE_MODULE.search(text)) is names
+
+
 def test_model_plane_drivers_are_scanned():
     """The FedAvg drivers, server optimizers and DP module hold the port's
     own copies of reference code: the scan above covers each of them."""
@@ -69,6 +104,15 @@ def test_ingest_and_paillier_modules_are_scanned():
     scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for name in ("client/ingest", "client/prefetch", "utils/arrivals", "ops/paillier"):
         assert f"sda_tpu_torch/{name}.py" in scanned
+
+
+def test_rider_modules_are_scanned():
+    """The bench's protocol-plane riders hold the port's own copies of
+    ``bench.py``'s: both scans above cover each of them."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("__init__", "_common", "crypto", "ingest", "wire", "pipelines", "committee",
+                 "scaleout", "tiers", "sketches"):
+        assert f"sda_tpu_torch/riders/{name}.py" in scanned
 
 
 def test_no_port_file_loads_a_system_crypto_library():
