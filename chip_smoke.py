@@ -233,13 +233,28 @@ Phases, each reported on its own line:
    none in ``bench-artifacts/``, CUDA uninitialised until the sketch rider
    (the only one whose clients compute on the card), and the metric line
    verified with K1 launched 50 times and K2 never.
+24. scripts: the CI gate's drivers (``sda_tpu_torch/scripts``) on the card.
+   First one ``load_soak`` round at the CNN's width in this process
+   (``build_stack``, ``run_round(values=...)``) against ``serve_background``
+   over sqlite: 10 rows drawn from the seed, the reveal exact against
+   numpy, the recipient's fold on K2 (10 seeds x 207,923 blocks), K2
+   against its plain version there; a ``soak round`` line and K2's
+   ``parity`` and ``numbers`` lines. Then, as a user runs them, four at a
+   time, artifacts in a temporary directory: ``check_metrics``,
+   ``load_soak --duration 20 --rate 40 --round-size 80 --interval 1
+   --ab-rounds 0`` and ``trace_report`` over its artifact, ``flagship
+   --smoke`` with ``SDA_TIER_FANOUT=1`` and with the default, the sketch
+   suite ``--store sqlite``, ``soak 50`` and ``rest_ingest --n 20000
+   --backend sqlite``; one ``script`` line each, with the checks of the
+   reference CI's stage 3, and none may write into ``bench-artifacts/``.
 
 Then the ``{"kernels": [...]}`` line (launches: K1's on the main path, the
 fabrics, the FedAvg round, the bench's K1 route in phases 11 and 23, the
 ladder's config 3 and the model rounds, K2's on the masked path, the
 fabrics, the FedAvg round,
 the model rounds, the sealed round, the trainer rounds, the REST round,
-the tier round, the ingest round and the flight round),
+the tier round, the ingest round, the flight round and the CNN-width soak
+round),
 and last ``{"ok":
 true, "device": ...}``. Any failed phase raises, and the script exits
 nonzero.
@@ -2201,12 +2216,12 @@ def _sealed_updates(dev, rng, count: int = SEALED_COHORT):
 
 
 def _k2_at_fold(card: str, dev, folds, dim: int, p: int, sm_clocks_per_ms: float, launches: int,
-                path: str) -> int:
+                path: str, **extra) -> int:
     """K2 at a reveal fold's shape, on the round's own seeds (``folds`` as
     ``sealed_round`` returns them): one ``parity`` line against the plain
     version, which must be identical, and one ``numbers`` line (wrapper by
-    CUDA events, own time by the profiler, plain, bound). Returns K2's
-    max_abs_err there."""
+    CUDA events, own time by the profiler, plain, bound; ``extra`` fields
+    too). Returns K2's max_abs_err there."""
     import numpy as np
     import torch
 
@@ -2238,7 +2253,7 @@ def _k2_at_fold(card: str, dev, folds, dim: int, p: int, sm_clocks_per_ms: float
                     "ms_per_seen": seen_ms / seen if seen else None},
           plain_ms=k2_plain, bytes=moved, int32_ops=ops, int_pipe_ops=int_ops,
           bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
-          launches=launches, card=card)
+          launches=launches, **extra, card=card)
     return k2_err
 
 
@@ -3845,6 +3860,280 @@ def riders_phase(card: str) -> int:
     return launches["limb_share_sum"]
 
 
+# phase 24: the CI gate's drivers, ``python -m sda_tpu_torch.scripts.*`` and
+# the sketch suite over REST, each run as a user runs it with its artifacts
+# in a temporary directory, ``SCRIPTS_PARALLEL`` at a time; the soak's and
+# the flagship's arguments are the reference CI's (ci.sh stage 3)
+SCRIPTS_PARALLEL = 4
+SCRIPTS_TIMEOUT_S = 600
+SCRIPTS_SOAK_ARGV = ["--duration", "20", "--rate", "40", "--round-size", "80", "--interval", "1",
+                     "--ab-rounds", "0"]
+SCRIPTS_SOAK_ROUNDS = 50
+# reduced from the script's default of 100,000 rows to fit the phase's time
+SCRIPTS_INGEST_N, SCRIPTS_INGEST_DEFAULT_N = 20_000, 100_000
+# the CNN-width soak round: the paper's per-round cohort of 10 rows
+SCRIPTS_WIDE_ROWS = 10
+
+
+def _wide_soak_round(card: str, dev, seed: int, sm_clocks_per_ms: float):
+    """One ``load_soak`` round at the ``FEDAVG_MODEL`` CNN's width in this
+    process: ``build_stack`` on ``dev`` against ``serve_background`` over
+    the sqlite store, ``run_round`` with ``SCRIPTS_WIDE_ROWS`` rows drawn
+    from ``seed`` in ``[0, MODULUS)`` through the soak's paged delivery.
+    ``run_round`` holds the reveal to the exact sum; the recipient's fold of
+    10 x 1,663,370 mask elements (above the device threshold) must launch K2
+    once a fold chunk, timed by CUDA events. One ``soak round`` line with the
+    stage seconds, then K2 against its plain version at the fold's shape.
+    Returns ``(k2 launches, k2 max_abs_err)``."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.crypto import masking
+    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.rest import serve_background
+    from sda_tpu_torch.scripts import load_soak
+    from sda_tpu_torch.server import new_sqlite_server
+
+    dim = sum(math.prod(s) for leaves in FEDAVG_MODEL.values() for s in leaves.values())
+    p = load_soak.MODULUS
+    values = np.random.default_rng(seed + 24).integers(0, p, size=(SCRIPTS_WIDE_ROWS, dim),
+                                                        dtype=np.int64)
+    seconds, folds = {}, []
+    real_combine = masking.combine_masks_device
+
+    def timed_combine(seeds, *args, **kwargs):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        out = real_combine(seeds, *args, **kwargs)
+        events[1].record()
+        folds.append((events, np.asarray(seeds)))
+        return out
+
+    # the soak's paged delivery, as load_soak's main sets it for its server
+    paged = load_soak.PAGED_ENV
+    saved = {k: os.environ.get(k) for k in paged}
+    os.environ.update(paged)
+    masking.combine_masks_device = timed_combine
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                serve_background(new_sqlite_server(os.path.join(tmp, "soak.db"))) as url:
+            recipient, rkey, clerks, participant = stack = load_soak.build_stack(Path(tmp), url, dev)
+            _timed(participant, "new_participations", seconds, "build_s")
+            _timed(participant, "upload_participation", seconds, "ingest_s")
+            _timed(recipient, "end_aggregation", seconds, "snapshot_s")
+            for clerk in clerks:
+                _timed(clerk, "run_chores", seconds, "clerking_s")
+            _timed(recipient, "reveal_aggregation", seconds, "reveal_s")
+            torch.cuda.synchronize()
+            chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
+            record = load_soak.run_round(0, stack, SCRIPTS_WIDE_ROWS, None, values=values)
+            torch.cuda.synchronize()
+            launches, recoveries = chacha_cuda.launches, chacha_cuda.slack_recoveries
+    finally:
+        masking.combine_masks_device = real_combine
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    fold_s = sum(a.elapsed_time(b) for (a, b), _ in folds) / 1e3 if folds else None
+    implied = -(-SCRIPTS_WIDE_ROWS // chacha_cuda.default_chunk(dim))
+    checks = {"exact": record["exact"], "one_fold": len(folds) == 1,
+              "k2_per_fold_chunk": launches - recoveries == implied,
+              "fold_rows": [int(s.shape[0]) for _, s in folds] == [SCRIPTS_WIDE_ROWS]}
+    _line("soak round", rows=SCRIPTS_WIDE_ROWS, dim=dim, modulus=p, store="sqlite",
+          round_s=record["round_s"], **seconds, mask_combine_s=fold_s,
+          launches={"chacha20": launches}, slack_recoveries=recoveries, exact=record["exact"],
+          checks=checks, card=card)
+    if not all(checks.values()):
+        raise AssertionError(f"soak round: a check failed: {checks}")
+    k2_err = _k2_at_fold(card, dev, folds, dim, p, sm_clocks_per_ms, launches, "soak round",
+                         round_s=record["round_s"], ingest_s=seconds.get("ingest_s"),
+                         reveal_s=seconds.get("reveal_s"), mask_combine_s=fold_s)
+    return launches, k2_err
+
+
+def _one_artifact(directory: Path, pattern: str):
+    found = sorted(directory.glob(pattern))
+    return json.loads(found[0].read_text()) if len(found) == 1 else None, len(found)
+
+
+def _soak_checks(tmp: Path, rc: int) -> tuple[dict, dict]:
+    """ci.sh's soak checks: one artifact, >= 10 sampler windows in a
+    strictly rising series, every round exact."""
+    d, found = _one_artifact(tmp / "soak", "soak-*.json")
+    d = d or {}
+    ts = [s["t"] for s in d.get("samples", [])]
+    checks = {"rc_0": rc == 0, "one_artifact": found == 1, "samples_10": len(ts) >= 10,
+              "monotonic": ts == sorted(ts) and len(set(ts)) == len(ts),
+              "all_exact": d.get("total_rounds", 0) >= 1 and d.get("exact_rounds") == d.get("total_rounds")}
+    return checks, {"rounds": d.get("total_rounds"), "exact_rounds": d.get("exact_rounds"),
+                    "samples": len(ts), "rps_mean": d.get("summary", {}).get("rps_mean")}
+
+
+def _flagship_checks(tmp: Path, leg: str, rc: int) -> tuple[dict, dict]:
+    """ci.sh's flagship checks of one leg's artifact."""
+    d, found = _one_artifact(tmp / leg, "flagship-*.json")
+    d = d or {}
+    topology, ladder = d.get("topology", {}), d.get("ladder", [])
+    merged = d.get("merged_samples") or []
+    peak = max((s.get("procs", 0) for s in merged), default=0)
+    arrivals = (d.get("arrivals_ab") or {}).get("arrivals_pipeline_speedup")
+    fanout = (d.get("tier_close_ab") or {}).get("tier_close_fanout_speedup")
+    checks = {
+        "rc_0": rc == 0, "one_artifact": found == 1,
+        "topology": topology.get("frontend_processes", 0) >= 2 and topology.get("shards", 0) >= 2
+                    and topology.get("replicas", 0) >= 2,
+        "first_rung_certified": bool(ladder) and bool(ladder[0].get("certified")),
+        "certified_4": d.get("certified_max_cohort", 0) >= 4,
+        "rungs_exact_flat": bool(ladder) and all(r["exact"] and r["flat_byte_match"] for r in ladder),
+        "pipelined_ingest": d.get("ingest_pipeline") is True and all(r.get("ingest_pipeline") for r in ladder),
+        "arrivals_ab": isinstance(arrivals, (int, float)),
+        "tier_close_ab": isinstance(fanout, (int, float)),
+        "merged_two_procs": peak >= 2,
+    }
+    return checks, {"certified_max_cohort": d.get("certified_max_cohort"), "merged_buckets": len(merged),
+                    "peak_procs": peak, "arrivals_pipeline_speedup": arrivals,
+                    "tier_close_fanout_speedup": fanout, "campaign_s": d.get("campaign_s")}
+
+
+def _sketch_checks(tmp: Path, rc: int) -> tuple[dict, dict]:
+    """ci.sh's sketch-suite checks, from the banked JSON alone."""
+    path = tmp / "suite.json"
+    d = json.loads(path.read_text()) if path.exists() else {}
+    checks = {"rc_0": rc == 0, "store_sqlite": d.get("store") == "sqlite"}
+    try:
+        cm, cs, qt, lc, tk = (d[k] for k in ("countmin", "countsketch", "quantiles", "cardinality", "topk"))
+        checks["countmin"] = all(cm["true"][a] <= est <= cm["true"][a] + cm["bound"]
+                                 for a, est in cm["hits"].items())
+        checks["countsketch"] = all(abs(est - cs["true"][a]) <= cs["bound"] for a, est in cs["estimates"].items())
+        checks["quantiles"] = bool(qt["ranks"]) and all(
+            r["lo"] - qt["rank_bound"] <= r["target"] <= r["hi"] + qt["rank_bound"] for r in qt["ranks"].values())
+        checks["cardinality"] = abs(lc["estimate"] - lc["true"]) <= lc["bound"]
+        checks["topk"] = {a for a, _ in tk["topk"]} == set(tk["true_hot"])
+    except KeyError as e:
+        checks["summary"] = False
+        return checks, {"missing": str(e)}
+    return checks, {"topk": tk["topk"], "cardinality": lc["estimate"]}
+
+
+def _check_metrics_checks(rc: int, out: str) -> tuple[dict, dict]:
+    from sda_tpu_torch.scripts.check_metrics import REQUIRED_SERIES
+
+    last = (out.strip().splitlines() or [""])[-1]
+    m = re.match(r"check_metrics OK: (\d+) exposition lines", last)
+    found = sum(1 for name in REQUIRED_SERIES if name in last) if m else 0
+    return ({"rc_0": rc == 0, "ok_line": bool(m), "series": found == len(REQUIRED_SERIES)},
+            {"exposition_lines": int(m.group(1)) if m else None, "series_found": found,
+             "series_required": len(REQUIRED_SERIES)})
+
+
+def scripts_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+    """Phase 24: ``_wide_soak_round``, then the scripts as subprocesses on
+    the card (``cuda``, their default device) with the ``SDA_*`` settings of
+    earlier phases cleared, ``SCRIPTS_PARALLEL`` at a time; one ``script``
+    line each with its exit code, wall seconds, headline numbers and checks.
+    Any failed check fails the phase. Returns ``(k2 launches, k2
+    max_abs_err)`` of the wide round."""
+    import concurrent.futures
+    import tempfile
+
+    import torch
+
+    k2, k2_err = _wide_soak_round(card, dev, seed, sm_clocks_per_ms)
+    torch.cuda.empty_cache()  # the subprocesses share the card with this one
+
+    base = {k: v for k, v in os.environ.items() if not k.startswith("SDA_")}
+    earlier = Path(__file__).resolve().parent / "bench-artifacts"
+    earlier_files = sorted(earlier.iterdir()) if earlier.is_dir() else []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # the longest legs first (on the H100's 8-core host, rest_ingest's
+        # 20,000 rows beside three other legs take over a minute), so that
+        # four at a time the phase lasts about as long as its longest leg
+        legs = {  # label -> (module, argv, extra environment)
+            "rest_ingest": ("sda_tpu_torch.scripts.rest_ingest",
+                            ["--n", str(SCRIPTS_INGEST_N), "--backend", "sqlite", "--out",
+                             str(tmp / "ingest.json")], {}),
+            "flagship serial": ("sda_tpu_torch.scripts.flagship",
+                                ["--smoke", "--artifacts", str(tmp / "serial")], {"SDA_TIER_FANOUT": "1"}),
+            "flagship fanout": ("sda_tpu_torch.scripts.flagship",
+                                ["--smoke", "--artifacts", str(tmp / "fanout")], {}),
+            "load_soak": ("sda_tpu_torch.scripts.load_soak",
+                          [*SCRIPTS_SOAK_ARGV, "--artifacts", str(tmp / "soak")], {}),
+            "soak": ("sda_tpu_torch.scripts.soak", [str(SCRIPTS_SOAK_ROUNDS)], {}),
+            "sketch_suite": ("sda_tpu_torch.examples.sketch_suite",
+                             ["--store", "sqlite", "--json", str(tmp / "suite.json")], {}),
+            "check_metrics": ("sda_tpu_torch.scripts.check_metrics", [], {}),
+        }
+
+        def run(label):
+            module, argv, env = legs[label]
+            t0 = time.perf_counter()
+            rc, out, err = _module_cli(module, argv, SCRIPTS_TIMEOUT_S, {**base, **env})
+            return rc, out, err, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(SCRIPTS_PARALLEL) as pool:
+            futures = {label: pool.submit(run, label) for label in legs}
+            results = {label: future.result() for label, future in futures.items()}
+        # then the flight recorder over the soak's banked artifact
+        soak_art = sorted((tmp / "soak").glob("soak-*.json"))
+        trace_out = tmp / "round.trace.json"
+        legs["trace_report"] = ("sda_tpu_torch.scripts.trace_report",
+                                [*map(str, soak_art[:1]), "--out", str(trace_out)], {})
+        results["trace_report"] = run("trace_report")
+        wall_s = time.perf_counter() - t0
+
+        verdicts = {}
+        for label, (rc, out, err, leg_s) in results.items():
+            if label == "check_metrics":
+                checks, numbers = _check_metrics_checks(rc, out)
+            elif label == "load_soak":
+                checks, numbers = _soak_checks(tmp, rc)
+            elif label.startswith("flagship"):
+                checks, numbers = _flagship_checks(tmp, label.split()[1], rc)
+            elif label == "sketch_suite":
+                checks, numbers = _sketch_checks(tmp, rc)
+            elif label == "soak":
+                last = (out.strip().splitlines() or [""])[-1]
+                want = f"soak: {SCRIPTS_SOAK_ROUNDS}/{SCRIPTS_SOAK_ROUNDS} random rounds exact"
+                checks, numbers = {"rc_0": rc == 0, "all_exact": last == want}, {"last": last}
+            elif label == "rest_ingest":
+                path = tmp / "ingest.json"
+                d = json.loads(path.read_text()) if path.exists() else {}
+                checks = {"rc_0": rc == 0, "rows": d.get("n") == SCRIPTS_INGEST_N,
+                          "stored_rows_verified": d.get("stored_rows_verified") is True}
+                numbers = {"n": d.get("n"), "reduced_from": SCRIPTS_INGEST_DEFAULT_N,
+                           "participations_per_s": d.get("participations_per_s"),
+                           "post_wall_s": d.get("wall_s")}
+            else:  # trace_report over the soak's artifact
+                try:
+                    events = json.loads(trace_out.read_text())["traceEvents"]
+                except (OSError, ValueError, KeyError, TypeError):
+                    events = []
+                head = (out.splitlines() or [""])[0]
+                checks = {"rc_0": rc == 0, "artifact": len(soak_art) == 1, "chrome_trace": bool(events)}
+                numbers = {"report": head, "trace_events": len(events)}
+            verdicts[label] = all(checks.values())
+            # every leg but trace_report shared the host with the others
+            parallel = 1 if label == "trace_report" else SCRIPTS_PARALLEL
+            _line("script", name=label, argv=legs[label][1], rc=rc, wall_s=leg_s, parallel=parallel,
+                  **numbers, checks=checks, card=card)
+            if not verdicts[label]:
+                print(f"script {label}: stderr tail:\n{err[-3000:]}", file=sys.stderr, flush=True)
+    untouched = (sorted(earlier.iterdir()) if earlier.is_dir() else []) == earlier_files
+    _line("scripts", wall_s=wall_s, parallel=SCRIPTS_PARALLEL, passed=verdicts,
+          bench_artifacts_untouched=untouched, card=card)
+    if not (all(verdicts.values()) and untouched):
+        raise AssertionError(f"scripts: failed legs {[k for k, v in verdicts.items() if not v]}, "
+                             f"bench-artifacts untouched: {untouched}")
+    return k2, k2_err
+
+
 def _query_gpu(field: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader,nounits"],
@@ -4263,6 +4552,8 @@ def main(argv=None) -> int:
     # -- 23. the bench's protocol-plane riders, then its K1 route, as a user runs it
     torch.cuda.empty_cache()  # the subprocess shares the card with this one
     riders_k1 = riders_phase(card)
+    # -- 24. the CI gate's scripts, after a load_soak round at the CNN's width ----
+    scripts_k2, scripts_k2_err = scripts_phase(card, dev, args.seed, sm_clocks_per_ms)
 
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",
@@ -4284,9 +4575,10 @@ def main(argv=None) -> int:
         "source": "sda_tpu_torch/csrc/chacha20.cu",
         "replaces": "sda_tpu/ops/chacha_pallas.py:47",
         "launches": (masked_launches["chacha20"] + fabric_launches["chacha20"] + fedavg_k2 + model_k2
-                     + sealed_k2 + trainer_k2 + rest_k2 + tier_k2 + ingest_k2 + flight_k2),
+                     + sealed_k2 + trainer_k2 + rest_k2 + tier_k2 + ingest_k2 + flight_k2 + scripts_k2),
         "max_abs_err": max(k2_err, fabric_k2_err, fedavg_k2_err, model_k2_err, sealed_k2_err,
-                           trainer_k2_err, rest_k2_err, tier_k2_err, ingest_k2_err, flight_k2_err),
+                           trainer_k2_err, rest_k2_err, tier_k2_err, ingest_k2_err, flight_k2_err,
+                           scripts_k2_err),
         "ms": kernel2_ms,
         "plain_ms": plain2_ms,
         "bound_ms": max(bytes2_ms, ops2_ms),

@@ -10,10 +10,14 @@ import contextlib
 import json
 import os
 import pathlib
+import re
+import select
+import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.request
 
 from .. import telemetry
 
@@ -25,6 +29,11 @@ RUN_TRACE_ID = telemetry.new_trace_id()
 #: root of its own (``bench-artifacts/`` is the earlier benchmark's folder and
 #: is never written); ``set_artifacts_dir`` (the bench's ``--artifacts``) moves it
 ARTIFACTS_DIR = pathlib.Path(__file__).resolve().parents[2] / "bench-artifacts-torch"
+
+#: the ``sdad`` every spawned frontend or committee runs: the port's own
+#: daemon, started from the checkout's root so the package imports
+SDAD_MODULE = "sda_tpu_torch.cli.sdad"
+SDAD_CWD = pathlib.Path(__file__).resolve().parents[2]
 
 
 def artifacts_dir() -> pathlib.Path | None:
@@ -250,3 +259,67 @@ def set_env(name: str, value) -> None:
         os.environ.pop(name, None)
     else:
         os.environ[name] = str(value)
+
+
+def spawn_sdad(args: list, *, env=None, errlog=None, stdout=subprocess.PIPE):
+    """Start ``python -m sda_tpu_torch.cli.sdad <args>``. Its stderr goes
+    to the file ``errlog`` (kept for ``sdad_url``'s failure message) or is
+    discarded."""
+    err = open(errlog, "w") if errlog is not None else subprocess.DEVNULL
+    try:
+        proc = subprocess.Popen([sys.executable, "-m", SDAD_MODULE, *map(str, args)],
+                                cwd=SDAD_CWD, stdout=stdout, stderr=err, env=env, text=True)
+    finally:
+        if errlog is not None:
+            err.close()
+    proc.sda_errlog = errlog
+    return proc
+
+
+def _sdad_exited(proc) -> RuntimeError:
+    tail = ""
+    if proc.sda_errlog is not None and os.path.exists(proc.sda_errlog):
+        with open(proc.sda_errlog) as fh:
+            tail = "\n".join(fh.read().splitlines()[-15:])
+    return RuntimeError(f"sdad exited rc={proc.returncode}; stderr tail:\n{tail}")
+
+
+def sdad_url(proc, deadline_s: float = 30.0) -> str:
+    """Block until an ``sdad httpd`` started by ``spawn_sdad`` prints
+    ``sdad: listening on host:port`` (skipping any lines it logs before)
+    and answers ``/v1/ping``; returns its base URL. Raises if it exits or
+    the deadline passes first."""
+    end = time.monotonic() + deadline_s
+    port = None
+    while port is None:
+        if proc.poll() is not None:
+            raise _sdad_exited(proc)
+        if time.monotonic() > end:
+            raise RuntimeError(f"sdad did not report a port within {deadline_s}s")
+        ready, _, _ = select.select([proc.stdout], [], [], 0.2)
+        if ready:
+            m = re.search(r"listening on [\d.]+:(\d+)", proc.stdout.readline())
+            port = int(m.group(1)) if m else None
+    url = f"http://127.0.0.1:{port}"
+    while time.monotonic() < end:
+        if proc.poll() is not None:
+            raise _sdad_exited(proc)
+        try:
+            with urllib.request.urlopen(url + "/v1/ping", timeout=2) as resp:
+                if resp.status == 200:
+                    return url
+        except OSError:
+            time.sleep(0.1)
+    raise RuntimeError(f"sdad on :{port} not ready after {deadline_s}s")
+
+
+def start_sdad(store_args: list, *, env=None, errlog=None, deadline_s: float = 30.0):
+    """One ``sdad <store_args> httpd`` on a kernel-chosen loopback port:
+    ``(proc, url)`` once it answers."""
+    proc = spawn_sdad([*store_args, "httpd", "-b", "127.0.0.1:0"], env=env, errlog=errlog)
+    try:
+        return proc, sdad_url(proc, deadline_s)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise

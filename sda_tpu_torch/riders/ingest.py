@@ -20,11 +20,49 @@ from ._common import RUN_TRACE_ID, aggregation, bank, emit_line, rest_deployment
 TRANSCRIPT_PATH = pathlib.Path(__file__).resolve().parents[2] / "tests" / "replay_transcript.py"
 
 
-def _transcript() -> list:
+def load_transcript() -> list:
     spec = importlib.util.spec_from_file_location("replay_transcript", TRANSCRIPT_PATH)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.TRANSCRIPT
+
+
+#: the transcript step whose body is the participation template
+PARTICIPATION_LABEL = "part-1 participates"
+
+
+def replay_request(conn, step, body=None) -> int:
+    """Send one transcript step on ``conn`` under its Basic auth, with its
+    recorded body or ``body``; returns the response status."""
+    headers = {}
+    if step["auth"]:
+        agent, pw = step["auth"]
+        headers["Authorization"] = "Basic " + base64.b64encode(f"{agent}:{pw}".encode()).decode()
+    data = (body or step["request_body"] or "").encode() or None
+    if data:
+        headers["Content-Type"] = "application/json"
+    conn.request(step["method"], step["path"], body=data, headers=headers)
+    resp = conn.getresponse()
+    resp.read()
+    return resp.status
+
+
+def replay_setup(conn, transcript: list) -> dict:
+    """Replay the transcript's setup prefix (agents, keys, aggregation,
+    committee) on ``conn``, each step at its recorded status; returns the
+    participation step that follows it."""
+    post = next(s for s in transcript if s["label"] == PARTICIPATION_LABEL)
+    for step in transcript[: transcript.index(post)]:
+        status = replay_request(conn, step)
+        assert status == step["status"], (step["label"], status, step["status"])
+    return post
+
+
+def participation_bodies(post: dict, ids) -> list:
+    """The participation step's body cloned under each of ``ids``,
+    serialized as the wire carries it."""
+    template = json.loads(post["request_body"])
+    return [json.dumps({**template, "id": pid}, separators=(",", ":")) for pid in ids]
 
 
 def measure_rest_ingest(n_posts: int = 300) -> dict:
@@ -39,36 +77,17 @@ def measure_rest_ingest(n_posts: int = 300) -> dict:
     from ..rest.server import serve_background
     from ..server import new_mem_server
 
-    transcript = _transcript()
-    by_label = {s["label"]: s for s in transcript}
-    post = by_label["part-1 participates"]
     out = {}
     with serve_background(new_mem_server()) as url:
         conn = http.client.HTTPConnection(url.split("//")[1], timeout=30)
-
-        def do(step, body=None):
-            headers = {}
-            if step["auth"]:
-                agent, pw = step["auth"]
-                headers["Authorization"] = "Basic " + base64.b64encode(f"{agent}:{pw}".encode()).decode()
-            data = (body or step["request_body"] or "").encode() or None
-            if data:
-                headers["Content-Type"] = "application/json"
-            conn.request(step["method"], step["path"], body=data, headers=headers)
-            resp = conn.getresponse()
-            resp.read()
-            want = (200, 201) if body is not None else (step["status"],)
-            assert resp.status in want, (step["label"], resp.status, want)
-
         try:
-            for step in transcript[: transcript.index(post)]:
-                do(step)
-            template = json.loads(post["request_body"])
-            posts = [json.dumps({**template, "id": f"11111111-0000-4000-8000-{i:012d}"},
-                                separators=(",", ":")) for i in range(n_posts)]
+            post = replay_setup(conn, load_transcript())
+            posts = participation_bodies(
+                post, (f"11111111-0000-4000-8000-{i:012d}" for i in range(n_posts)))
             t0 = time.perf_counter()
             for body in posts:
-                do(post, body=body)
+                status = replay_request(conn, post, body)
+                assert status in (200, 201), (post["label"], status)
             out["participations_per_s"] = round(n_posts / (time.perf_counter() - t0))
         finally:
             conn.close()

@@ -9,19 +9,12 @@ import contextlib
 import os
 import pathlib
 import re
-import subprocess
-import sys
 import tempfile
 import threading
 import time
 import urllib.request
 
-from ._common import Deployment, aggregation, bank, emit_line, env_int
-
-#: the ``sdad`` a frontend runs: the port's own daemon
-SDAD_MODULE = "sda_tpu_torch.cli.sdad"
-#: lines an ``sdad`` may log before ``sdad: listening on host:port``
-SDAD_BANNER_LINES = 20
+from ._common import Deployment, aggregation, bank, emit_line, env_int, sdad_url, spawn_sdad
 
 
 def scrape_shard_counts(url: str) -> dict:
@@ -41,35 +34,17 @@ def scrape_shard_counts(url: str) -> dict:
     return counts
 
 
-def _spawn_frontend(store_args: list, env: dict):
-    return subprocess.Popen(
-        [sys.executable, "-m", SDAD_MODULE, *store_args, "httpd", "-b", "127.0.0.1:0"],
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, env=env, text=True)
-
-
-def _frontend_url(proc) -> str:
-    """Block until ``proc`` prints ``sdad: listening on host:port``."""
-    lines = []
-    for _ in range(SDAD_BANNER_LINES):
-        line = proc.stdout.readline()
-        lines.append(line)
-        if "listening on" in line:
-            return f"http://127.0.0.1:{line.strip().rsplit(':', 1)[1]}"
-        if not line:
-            break
-    raise RuntimeError(f"sdad frontend failed to start: {''.join(lines)!r}")
-
-
 def start_frontends(k: int, store_args: list, env: dict, procs: list) -> list:
     """``k`` ``sdad`` processes over ``store_args`` on kernel-chosen loopback
     ports, appended to ``procs`` as they start; returns their URLs once all
     listen. The first one listens before the others start, so it alone
     creates the schema; the others start together."""
-    procs.append(_spawn_frontend(store_args, env))
-    urls = [_frontend_url(procs[0])]
-    rest = [_spawn_frontend(store_args, env) for _ in range(k - 1)]
+    httpd = [*store_args, "httpd", "-b", "127.0.0.1:0"]
+    procs.append(spawn_sdad(httpd, env=env))
+    urls = [sdad_url(procs[0])]
+    rest = [spawn_sdad(httpd, env=env) for _ in range(k - 1)]
     procs.extend(rest)
-    return urls + [_frontend_url(proc) for proc in rest]
+    return urls + [sdad_url(proc) for proc in rest]
 
 
 def _round_members(d: Deployment):

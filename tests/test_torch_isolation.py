@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``sda_tpu_torch`` nor ``chip_smoke.py``
 imports ``jax``, ``sda_tpu`` or ``requests`` (which the card's machine may
 lack), or names a module of ``sda_tpu`` in a string (a ``-m`` argument, an
-``import_module`` name), none loads a system crypto library (``libcrypto``,
+``import_module`` name), spawns one or puts the repo's ``tests/`` on
+``sys.path``, none loads a system crypto library (``libcrypto``,
 ``libsodium``) and the native layer's C sources include, declare and open
 none; entry points default to CUDA and raise without it; ``chip_smoke.py``
 fails on a host without a GPU."""
@@ -115,6 +116,50 @@ def test_rider_modules_are_scanned():
         assert f"sda_tpu_torch/riders/{name}.py" in scanned
 
 
+def test_script_modules_are_scanned():
+    """The CI gate's drivers hold the port's own copies of the reference's
+    ``scripts/``: every scan here covers each of them."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("__init__", "check_metrics", "trace_report", "load_soak", "flagship", "soak",
+                 "rest_ingest"):
+        assert f"sda_tpu_torch/scripts/{name}.py" in scanned
+
+
+#: ``"-m", "sda_tpu.<module>"``: a spawn of a module of the JAX package
+SPAWNS_REFERENCE = re.compile(r"""["']-m["']\s*,\s*["']sda_tpu\.""")
+
+
+@pytest.mark.parametrize("text, spawns", [
+    ('[sys.executable, "-m", "sda_tpu.cli.sdad"]', True), ("('-m','sda_tpu.bench')", True),
+    ('[sys.executable, "-m", "sda_tpu_torch.cli.sdad"]', False),
+])
+def test_spawn_pattern(text, spawns):
+    assert bool(SPAWNS_REFERENCE.search(text)) is spawns
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_port_file_spawns_a_reference_module(path):
+    """Every process the port spawns runs the port (``-m
+    sda_tpu_torch...``), never a module of the JAX package; docstrings
+    included."""
+    found = SPAWNS_REFERENCE.search(path.read_text())
+    assert not found, f"{path.relative_to(ROOT)} spawns {found.group(0)}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_port_file_puts_tests_on_sys_path(path):
+    """No port file reaches the repo's test helpers (which import the JAX
+    package) by putting ``tests/`` on ``sys.path`` or ``PYTHONPATH``."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if not isinstance(node, ast.Call):
+            continue
+        target = ast.unparse(node.func)
+        if target in ("sys.path.insert", "sys.path.append", "sys.path.extend", "site.addsitedir"):
+            assert "tests" not in ast.unparse(node), \
+                f"{path.relative_to(ROOT)}:{node.lineno} puts tests/ on sys.path"
+    assert not re.search(r"PYTHONPATH[^\n]*tests", path.read_text()), path
+
+
 def test_no_port_file_loads_a_system_crypto_library():
     """The port's crypto is its own (sealed boxes, key generation, Ed25519
     signing and Paillier's modexp in the native layer's C, their plain
@@ -206,6 +251,23 @@ def test_default_device_raises_without_gpu():
         convert.accumulator_from_reference([[[0]]])
     assert resolve_device("cpu") == torch.device("cpu")
     assert TorchAggregator(scheme, 10, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("module, argv", [
+    ("check_metrics", []), ("load_soak", ["--duration", "1"]), ("flagship", ["--smoke"]),
+    ("soak", ["1"]),
+])
+def test_scripts_exit_2_without_gpu(module, argv, capsys):
+    """A script that builds clients defaults to CUDA: without a GPU it
+    exits 2 with ``resolve_device``'s message and runs nothing."""
+    import importlib
+
+    _no_gpu()
+    script = importlib.import_module(f"sda_tpu_torch.scripts.{module}")
+    with pytest.raises(SystemExit) as exc:
+        script.main(argv)
+    assert exc.value.code == 2
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 def test_chip_smoke_fails_without_gpu():
