@@ -247,14 +247,28 @@ Phases, each reported on its own line:
    suite ``--store sqlite``, ``soak 50`` and ``rest_ingest --n 20000
    --backend sqlite``; one ``script`` line each, with the checks of the
    reference CI's stage 3, and none may write into ``bench-artifacts/``.
+25. churn: the churn plane (``scenarios`` and ``crash_soak``) on the card.
+   First vanish-after-sharing's packed case at the CNN's width
+   (``scenario_vanish_after_sharing(cases=...)``): phase 14's scheme and
+   10 rows drawn from the seed, every client on CUDA over REST to one
+   ``sdad --mem``, the clerk at position 5 vanishing; the degraded reveal
+   from the other 7, then the straggler clerks and the full reveal, both
+   exact against numpy and byte-identical, each folding the 10 seeds on K2
+   (10 seeds x 207,923 blocks); a ``churn round`` line and K2's ``parity``
+   and ``numbers`` lines. Then, four at a time with ``--device cuda``, the
+   reference CI's five ``scenarios`` invocations of its churn stage and
+   stage 4's ``crash_soak 3``; one ``script`` line each, a ``churn`` line
+   with that CI's checks (six exact artifacts, two tiered cells, a shed, a
+   hinted write, ``3/3`` crash rounds), and none may write into
+   ``bench-artifacts/``.
 
 Then the ``{"kernels": [...]}`` line (launches: K1's on the main path, the
 fabrics, the FedAvg round, the bench's K1 route in phases 11 and 23, the
 ladder's config 3 and the model rounds, K2's on the masked path, the
 fabrics, the FedAvg round,
 the model rounds, the sealed round, the trainer rounds, the REST round,
-the tier round, the ingest round, the flight round and the CNN-width soak
-round),
+the tier round, the ingest round, the flight round, the CNN-width soak
+round and the CNN-width churn round),
 and last ``{"ok":
 true, "device": ...}``. Any failed phase raises, and the script exits
 nonzero.
@@ -2686,33 +2700,6 @@ SDAD_START_S = 120
 CLI_RESULT = "result: 0 2 2 4 4 6 6 8 8 10"
 
 
-def _start_sdad(store_args, log_path: Path, env=None):
-    """``python -m sda_tpu_torch.cli.sdad <store_args> httpd -b 127.0.0.1:0``
-    from this checkout, with ``env`` added to its environment and its stderr
-    to ``log_path``; returns ``(process, base url)`` once it prints its
-    ``listening`` line."""
-    import select
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, **(env or {}),
-           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "sda_tpu_torch.cli.sdad", *store_args, "httpd", "-b",
-             "127.0.0.1:0"], cwd=root, env=env, stdout=subprocess.PIPE, stderr=log, text=True)
-    deadline = time.monotonic() + SDAD_START_S
-    while time.monotonic() < deadline:
-        if select.select([proc.stdout], [], [], 1.0)[0]:
-            line = proc.stdout.readline()
-            if line.startswith("sdad: listening on "):
-                return proc, "http://" + line.split("listening on ", 1)[1].strip()
-            if not line:
-                break
-    proc.kill()
-    proc.wait()
-    raise AssertionError(f"sdad {store_args} did not start; stderr:\n{log_path.read_text()[-3000:]}")
-
-
 def _round_store(tmp: Path) -> list:
     """``sdad``'s store arguments for a round: sqlite under ``tmp``, or the
     file store where this Python has no ``sqlite3``."""
@@ -2721,15 +2708,6 @@ def _round_store(tmp: Path) -> list:
     except ImportError:
         return ["--file", str(tmp / "store")]
     return ["--sqlite", str(tmp / "sda.db")]
-
-
-def _stop(proc) -> None:
-    proc.terminate()
-    try:
-        proc.wait(timeout=10)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
 
 
 class _Traffic:
@@ -2793,6 +2771,14 @@ def _prometheus_sum(text: str, name: str, **labels) -> float:
     return total
 
 
+def _served_requests(text: str) -> float:
+    """The requests a server's ``/v1/metrics`` body counts, less its pings:
+    ``start_sdad`` pings each server until it answers, and no client of the
+    rounds pings."""
+    return (_prometheus_sum(text, "sda_http_requests_total")
+            - _prometheus_sum(text, "sda_http_requests_total", route="/v1/ping"))
+
+
 def _cli_walkthrough(url: str, root: Path) -> str:
     """scripts/simple-cli-example.sh's steps through
     ``sda_tpu_torch.cli.sda.main`` in this process, on CUDA clients; returns
@@ -2848,6 +2834,7 @@ def rest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
 
     from sda_tpu_torch.ops import chacha_cuda
     from sda_tpu_torch.rest import SdaHttpClient, TokenStore, wire
+    from sda_tpu_torch.riders._common import start_sdad, stop_process
 
     rng = np.random.default_rng(seed + 17)
     scheme, values = _sealed_updates(dev, rng)
@@ -2858,7 +2845,7 @@ def rest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         store = _round_store(tmp)
-        proc, url = _start_sdad(store, tmp / "sdad.log")
+        proc, url = start_sdad(store, errlog=tmp / "sdad.log", deadline_s=SDAD_START_S)
         try:
             def service_for(name):
                 return SdaHttpClient(url, TokenStore(tmp / "round" / name))
@@ -2872,8 +2859,8 @@ def rest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
             with urllib.request.urlopen(url + "/v1/metrics", timeout=60) as resp:
                 metrics = resp.read().decode("utf-8")
         finally:
-            _stop(proc)
-        served = _prometheus_sum(metrics, "sda_http_requests_total")
+            stop_process(proc)
+        served = _served_requests(metrics)
         exact = bool(np.array_equal(out["values"], want))
         checks = {"sum": exact, "one_k2_launch": launches - recoveries == 1,
                   "metrics_count_requests": served == traffic.counts["requests"], **out["checks"]}
@@ -2887,14 +2874,15 @@ def rest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
         if not all(checks.values()):
             raise AssertionError(f"rest round: a check failed: {checks}")
 
-        proc, url = _start_sdad(["--file", str(tmp / "cli-server")], tmp / "sdad-cli.log")
+        proc, url = start_sdad(["--file", tmp / "cli-server"], errlog=tmp / "sdad-cli.log",
+                               deadline_s=SDAD_START_S)
         try:
             chacha_cuda.launches = 0
             t0 = time.perf_counter()
             result = _cli_walkthrough(url, tmp / "cli")
             cli_s = time.perf_counter() - t0
         finally:
-            _stop(proc)
+            stop_process(proc)
         _line("cli walkthrough", result=result, wall_s=cli_s, launches={"chacha20": chacha_cuda.launches},
               card=card)
         if result != CLI_RESULT or chacha_cuda.launches:
@@ -2981,6 +2969,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     )
     from sda_tpu_torch.protocol import tiers as tiers_mod
     from sda_tpu_torch.rest import SdaHttpClient, TokenStore, wire
+    from sda_tpu_torch.riders._common import start_sdad, stop_process
     from sda_tpu_torch.server.sharded import ShardRouter
 
     rng = np.random.default_rng(seed + 18)
@@ -3019,15 +3008,16 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
         procs, urls = [], []
         try:
             for ix in range(TIER_FRONTENDS):
-                proc, url = _start_sdad(["--sqlite", str(root), "--shards", str(TIER_SHARDS),
-                                         "--replicas", str(TIER_REPLICAS)], tmp / f"sdad{ix}.log",
-                                        env={"SDA_SHARD_HANDOFF_S": str(TIER_HANDOFF_S),
-                                             "SDA_SHARD_HANDOFF_ATTEMPTS": str(TIER_HANDOFF_ATTEMPTS)})
+                proc, url = start_sdad(
+                    ["--sqlite", root, "--shards", TIER_SHARDS, "--replicas", TIER_REPLICAS],
+                    errlog=tmp / f"sdad{ix}.log", deadline_s=SDAD_START_S,
+                    env={**os.environ, "SDA_SHARD_HANDOFF_S": str(TIER_HANDOFF_S),
+                         "SDA_SHARD_HANDOFF_ATTEMPTS": str(TIER_HANDOFF_ATTEMPTS)})
                 procs.append(proc)
                 urls.append(url)
         except BaseException:
             for proc in procs:
-                _stop(proc)
+                stop_process(proc)
             raise
         polls = 0
         marker = None
@@ -3125,7 +3115,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
                 texts = [metrics(url) for url in urls]
             finally:
                 for proc in procs:
-                    _stop(proc)
+                    stop_process(proc)
                 # the frontends' own account of any hint they gave up on
                 abandoned_log = [line.split("sda.shard ", 1)[-1][:300]
                                  for ix in range(TIER_FRONTENDS)
@@ -3147,7 +3137,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
                         for tn in tround.leaves())
     root_rows = TIER_SUB_COHORTS * (scheme.share_count + 1)
     implied = sum(1 for rows in leaf_sizes + [root_rows] if rows * dim >= threshold)
-    served = sum(_prometheus_sum(t, "sda_http_requests_total") for t in texts)
+    served = sum(_served_requests(t) for t in texts)
     drained = sum(_prometheus_sum(t, "sda_shard_replica_writes_total", outcome="handoff")
                   for t in texts)
     abandoned = sum(_prometheus_sum(t, "sda_shard_replica_writes_total", outcome="abandoned")
@@ -3373,7 +3363,7 @@ def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: 
     launches, recoveries = chacha_cuda.launches, chacha_cuda.slack_recoveries
     torch.cuda.synchronize()
     with urllib.request.urlopen(url + "/v1/metrics", timeout=60) as resp:
-        served = _prometheus_sum(resp.read().decode("utf-8"), "sda_http_requests_total")
+        served = _served_requests(resp.read().decode("utf-8"))
 
     for stage in ("plan", "build", "upload"):
         seconds[stage] = _histogram_sum(telemetry, "sda_ingest_stage_seconds", stage=stage)
@@ -3560,7 +3550,7 @@ def paillier_round_phase(card: str, dev, seed: int, url: str, root: Path, traffi
     finally:
         traffic.remove()
     with urllib.request.urlopen(url + "/v1/metrics", timeout=60) as resp:
-        served = _prometheus_sum(resp.read().decode("utf-8"), "sda_http_requests_total")
+        served = _served_requests(resp.read().decode("utf-8"))
     exact = bool(np.array_equal(out.positive().values, want))
     masks = result.mask_encryption_count if result.is_paged() else len(result.recipient_encryptions)
     # one mod_exp_batch a Paillier vector: a mask of PAILLIER_DIM values,
@@ -3600,16 +3590,19 @@ def ingest_paillier_phases(card: str, dev, seed: int, sm_clocks_per_ms: float):
     ``(k2 launches, k2 max_abs_err)``."""
     import tempfile
 
+    from sda_tpu_torch.riders._common import start_sdad, stop_process
+
     traffic = _Traffic()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        proc, url = _start_sdad(_round_store(tmp), tmp / "sdad.log", env=INGEST_SERVER_ENV)
+        proc, url = start_sdad(_round_store(tmp), errlog=tmp / "sdad.log", deadline_s=SDAD_START_S,
+                               env={**os.environ, **INGEST_SERVER_ENV})
         try:
             launches, k2_err, served = ingest_round_phase(card, dev, seed, sm_clocks_per_ms, url,
                                                           tmp / "ingest", traffic)
             paillier_round_phase(card, dev, seed, url, tmp / "paillier", traffic, served)
         finally:
-            _stop(proc)
+            stop_process(proc)
     return launches, k2_err
 
 
@@ -4134,6 +4127,221 @@ def scripts_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     return k2, k2_err
 
 
+# phase 25: the churn plane. vanish-after-sharing's packed case at the CNN's
+# width through the scenario's ``cases`` seam, over REST to one ``sdad --mem``
+# (the reference CI's cell for that scenario), then the reference CI's churn
+# stage (ci.sh stage 5: five ``scenarios`` invocations, six cells) and stage
+# 4's crash soak as subprocesses, CHURN_PARALLEL at a time, longest first
+CHURN_VANISHED = (5,)
+CHURN_PARALLEL = 4
+CHURN_TIMEOUT_S = 600
+CHURN_CRASH_ROUNDS = 3
+CHURN_CI_RUNS = (  # label -> (--scenarios, --stores), as ci.sh runs them over REST
+    ("clerk-kill-mid-chunk", "sqlite"),
+    ("sub-committee-clerk-killed,sub-cohort-vanishes", "sqlite"),
+    ("kill-shard-mid-round", "sqlite"),
+    ("saturated-frontend", "mem"),
+    ("vanish-after-sharing", "mem"),
+)
+CHURN_TIMED = {"new_participations": "participate_s", "upload_participations": "participate_s",
+               "end_aggregation": "snapshot_s", "run_chores": "clerking_s"}
+
+
+def _churn_width_round(card: str, dev, seed: int, sm_clocks_per_ms: float):
+    """vanish-after-sharing's packed case at the ``FEDAVG_MODEL`` CNN's width:
+    ``_sealed_updates``' scheme (packed Shamir k=5, t=2, n=8, threshold 7)
+    and 10 rows drawn from ``seed``, through
+    ``scenarios.scenario_vanish_after_sharing`` with every client on ``dev``
+    over REST to one ``sdad --mem``. The scenario holds both reveals to the
+    exact sum and to each other; here they are held again against numpy's
+    sum mod p, in dtype and values, and each reveal's fold of the 10 seeds
+    must launch K2 once a fold chunk, timed by CUDA events. One ``churn
+    round`` line with the stage seconds (``clerking_s`` the 7 survivors,
+    ``straggler_s`` the vanished clerk after the degraded reveal), then K2
+    against its plain version at the fold's shape. Returns ``(k2
+    launches, k2 max_abs_err)``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.client import SdaClient
+    from sda_tpu_torch.crypto import masking
+    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.scripts import scenarios
+
+    rng = np.random.default_rng(seed + 25)
+    scheme, values = _sealed_updates(dev, rng)
+    p, dim = scheme.prime_modulus, len(values[0])
+    want = np.stack(values).sum(axis=0) % p
+    seconds, reveals, folds = {}, [], []
+    real_combine = masking.combine_masks_device
+
+    def timed_combine(seeds, *args, **kwargs):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        out = real_combine(seeds, *args, **kwargs)
+        events[1].record()
+        folds.append((events, np.asarray(seeds)))
+        return out
+
+    def timed(name, real):
+        def call(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = real(self, *args, **kwargs)
+            took = time.perf_counter() - t0
+            if name == "reveal_aggregation":
+                reveals.append((took, out))
+            else:  # a clerk's chores after the degraded reveal are a straggler's
+                key = "straggler_s" if name == "run_chores" and reveals else CHURN_TIMED[name]
+                seconds[key] = seconds.get(key, 0.0) + took
+            return out
+        return call
+
+    names = [*CHURN_TIMED, "reveal_aggregation"]
+    own = {name: SdaClient.__dict__.get(name) for name in names}
+    for name in names:
+        setattr(SdaClient, name, timed(name, getattr(SdaClient, name)))
+    masking.combine_masks_device = timed_combine
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                scenarios.Deployment("mem", "rest", Path(tmp), device=dev) as dep:
+            torch.cuda.synchronize()
+            chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
+            t0 = time.perf_counter()
+            details = scenarios.scenario_vanish_after_sharing(
+                dep, seed, cases={"packed": (scheme, CHURN_VANISHED, values)})["packed"]
+            torch.cuda.synchronize()
+            round_s = time.perf_counter() - t0
+            launches, recoveries = chacha_cuda.launches, chacha_cuda.slack_recoveries
+    finally:
+        masking.combine_masks_device = real_combine
+        for name, fn in own.items():
+            if fn is None:
+                delattr(SdaClient, name)
+            else:
+                setattr(SdaClient, name, fn)
+    (degraded_s, degraded), (full_s, full) = reveals
+    fold_ms = [a.elapsed_time(b) for (a, b), _ in folds]
+    per_reveal = -(-len(values) // chacha_cuda.default_chunk(dim))
+    checks = {
+        "degraded_sum": bool(np.array_equal(degraded.positive().values, want)),
+        "full_sum": bool(np.array_equal(full.positive().values, want)),
+        "byte_identical": full.values.dtype == degraded.values.dtype
+                          and bool(np.array_equal(full.values, degraded.values)),
+        "details": details["aggregate"] == want.tolist()
+                   and (details["committee"], details["threshold"]) == (8, 7),
+        "two_folds": [int(s.shape[0]) for _, s in folds] == [len(values)] * 2,
+        "k2_per_fold_chunk": launches - recoveries == 2 * per_reveal,
+    }
+    _line("churn round", scenario="vanish-after-sharing", case="packed", rows=len(values),
+          dim=dim, modulus=p, committee=details["committee"], threshold=details["threshold"],
+          vanished=details["vanished"], store="mem", transport="rest", round_s=round_s, **seconds,
+          reveal_s={"degraded": degraded_s, "full": full_s},
+          mask_combine_s=[ms / 1e3 for ms in fold_ms], launches={"chacha20": launches},
+          slack_recoveries=recoveries, checks=checks, card=card)
+    if not all(checks.values()):
+        raise AssertionError(f"churn round: a check failed: {checks}")
+    k2_err = _k2_at_fold(card, dev, folds[:1], dim, p, sm_clocks_per_ms, launches, "churn round",
+                         round_s=round_s, reveal_s=[degraded_s, full_s],
+                         mask_combine_s=[ms / 1e3 for ms in fold_ms])
+    return launches, k2_err
+
+
+def _churn_ci_checks(artifacts: Path) -> tuple[dict, dict]:
+    """ci.sh stage 5's checks over the banked scenario artifacts, as it
+    states them."""
+    arts = sorted(artifacts.glob("scenario-*.json"))
+    docs = {f.name: json.loads(f.read_text()) for f in arts}
+    tiered = [d for name, d in docs.items() if "sub-committee" in name or "sub-cohort" in name]
+    sat = [d for name, d in docs.items() if "saturated" in name]
+    rep = [d for name, d in docs.items() if "kill-shard" in name]
+    checks = {
+        "six_artifacts": len(arts) >= 6,
+        "all_exact": bool(docs) and all(d["ok"] and d["exact"] is True for d in docs.values()),
+        "tiered_2": len(tiered) >= 2 and all(d["exact"] is True for d in tiered),
+        "sheds": bool(sat) and (sat[0]["details"] or {}).get("sheds", 0) >= 1,
+        "hinted_while_down": bool(rep) and (rep[0]["details"] or {}).get("hinted_while_down", 0) >= 1,
+    }
+    numbers = {"artifacts": len(arts),
+               "cells": {d["scenario"]: d["elapsed_s"] for d in docs.values()},
+               "sheds": (sat[0]["details"] or {}).get("sheds") if sat else None,
+               "hinted_while_down": (rep[0]["details"] or {}).get("hinted_while_down") if rep else None,
+               "drain_s": (rep[0]["details"] or {}).get("drain_s") if rep else None}
+    return checks, numbers
+
+
+def churn_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+    """Phase 25: ``_churn_width_round``, then the reference CI's churn stage
+    and its crash soak as subprocesses on the card (``--device cuda``) with
+    the ``SDA_*`` settings of earlier phases cleared, ``CHURN_PARALLEL`` at
+    a time; one ``script`` line each with its exit code, wall seconds and
+    checks, a ``churn`` line with the CI's checks over the banked
+    artifacts. Any failed check fails the phase. Returns ``(k2 launches, k2
+    max_abs_err)`` of the width round."""
+    import concurrent.futures
+    import tempfile
+
+    import torch
+
+    k2, k2_err = _churn_width_round(card, dev, seed, sm_clocks_per_ms)
+    torch.cuda.empty_cache()  # the subprocesses share the card with this one
+
+    base = {k: v for k, v in os.environ.items() if not k.startswith("SDA_")}
+    earlier = Path(__file__).resolve().parent / "bench-artifacts"
+    earlier_files = sorted(earlier.iterdir()) if earlier.is_dir() else []
+    with tempfile.TemporaryDirectory() as tmp:
+        arts = Path(tmp) / "scenarios"
+        # the crash soak first: three rounds of two or three sdad processes
+        # and a CUDA client process is the longest leg
+        legs = {"crash_soak": ("sda_tpu_torch.scripts.crash_soak",
+                               [str(CHURN_CRASH_ROUNDS), "--device", "cuda"])}
+        for names, store in CHURN_CI_RUNS:
+            legs[names] = ("sda_tpu_torch.scripts.scenarios",
+                           ["--scenarios", names, "--stores", store, "--transports", "rest",
+                            "--artifacts", str(arts), "--device", "cuda"])
+
+        def run(label):
+            module, argv = legs[label]
+            t0 = time.perf_counter()
+            rc, out, err = _module_cli(module, argv, CHURN_TIMEOUT_S, base)
+            return rc, out, err, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(CHURN_PARALLEL) as pool:
+            futures = {label: pool.submit(run, label) for label in legs}
+            results = {label: future.result() for label, future in futures.items()}
+        wall_s = time.perf_counter() - t0
+
+        verdicts = {}
+        for label, (rc, out, err, leg_s) in results.items():
+            last = (out.strip().splitlines() or [""])[-1]
+            if label == "crash_soak":
+                want = (f"crash-soak: {CHURN_CRASH_ROUNDS}/{CHURN_CRASH_ROUNDS} randomized crash "
+                        "rounds exact")
+                checks = {"rc_0": rc == 0, "all_exact": last == want}
+                numbers = {"last": last, "rounds": [line for line in err.splitlines()
+                                                    if line.startswith(("[crash-soak]", "FAIL"))]}
+            else:
+                cells = [line for line in err.splitlines() if line.startswith("[scenarios]")]
+                checks = {"rc_0": rc == 0, "green": last.endswith("cells green")
+                          and last.split()[1].split("/")[0] == last.split()[1].split("/")[1]}
+                numbers = {"last": last, "cells": cells}
+            verdicts[label] = all(checks.values())
+            _line("script", name=label, argv=legs[label][1], rc=rc, wall_s=leg_s,
+                  parallel=CHURN_PARALLEL, **numbers, checks=checks, card=card)
+            if not verdicts[label]:
+                print(f"script {label}: stderr tail:\n{err[-3000:]}", file=sys.stderr, flush=True)
+        ci_checks, ci_numbers = _churn_ci_checks(arts)
+    untouched = (sorted(earlier.iterdir()) if earlier.is_dir() else []) == earlier_files
+    _line("churn", wall_s=wall_s, parallel=CHURN_PARALLEL, passed=verdicts, **ci_numbers,
+          checks=ci_checks, bench_artifacts_untouched=untouched, card=card)
+    if not (all(verdicts.values()) and all(ci_checks.values()) and untouched):
+        raise AssertionError(f"churn: failed legs {[k for k, v in verdicts.items() if not v]}, "
+                             f"ci checks {ci_checks}, bench-artifacts untouched: {untouched}")
+    return k2, k2_err
+
+
 def _query_gpu(field: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader,nounits"],
@@ -4554,6 +4762,8 @@ def main(argv=None) -> int:
     riders_k1 = riders_phase(card)
     # -- 24. the CI gate's scripts, after a load_soak round at the CNN's width ----
     scripts_k2, scripts_k2_err = scripts_phase(card, dev, args.seed, sm_clocks_per_ms)
+    # -- 25. the churn plane: a CNN-width vanish round, then ci's churn stage --
+    churn_k2, churn_k2_err = churn_phase(card, dev, args.seed, sm_clocks_per_ms)
 
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",
@@ -4575,10 +4785,11 @@ def main(argv=None) -> int:
         "source": "sda_tpu_torch/csrc/chacha20.cu",
         "replaces": "sda_tpu/ops/chacha_pallas.py:47",
         "launches": (masked_launches["chacha20"] + fabric_launches["chacha20"] + fedavg_k2 + model_k2
-                     + sealed_k2 + trainer_k2 + rest_k2 + tier_k2 + ingest_k2 + flight_k2 + scripts_k2),
+                     + sealed_k2 + trainer_k2 + rest_k2 + tier_k2 + ingest_k2 + flight_k2 + scripts_k2
+                     + churn_k2),
         "max_abs_err": max(k2_err, fabric_k2_err, fedavg_k2_err, model_k2_err, sealed_k2_err,
                            trainer_k2_err, rest_k2_err, tier_k2_err, ingest_k2_err, flight_k2_err,
-                           scripts_k2_err),
+                           scripts_k2_err, churn_k2_err),
         "ms": kernel2_ms,
         "plain_ms": plain2_ms,
         "bound_ms": max(bytes2_ms, ops2_ms),

@@ -323,3 +323,14 @@ def start_sdad(store_args: list, *, env=None, errlog=None, deadline_s: float = 3
         proc.kill()
         proc.wait()
         raise
+
+
+def stop_process(proc) -> None:
+    """Terminate ``proc`` if it runs, and reap it (killed after 10 s)."""
+    if proc.poll() is None:
+        proc.terminate()
+    try:
+        proc.wait(timeout=10)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()

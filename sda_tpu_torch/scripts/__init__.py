@@ -12,7 +12,12 @@ sda_tpu_torch.scripts.<name>``:
   ``sdad`` frontend and committee processes;
 - ``soak``: randomized in-process rounds across the scheme matrix;
 - ``rest_ingest``: participation POSTs against a live server, rows
-  counted in the store.
+  counted in the store;
+- ``scenarios``: the named churn scenarios over (store x transport)
+  deployment cells, banked as ``scenario-*.json`` with the survivability
+  matrix;
+- ``crash_soak``: randomized rounds over two ``sdad --sqlite`` processes on
+  one file, one of them SIGKILLed mid-round.
 
 The flags, exit codes and artifact shapes are the reference's. Every
 script that builds a client or spawns a committee takes ``--device``

@@ -64,6 +64,7 @@ from .load_soak import (  # noqa: F401 - WORKLOAD_SKETCH_SHAPE is one of flagshi
     workload_items,
     workload_sketch,
 )
+from .scenarios import persistent_client
 
 DIM = 4
 MODULUS = 100003
@@ -95,24 +96,6 @@ def spawn_committee(tmp: pathlib.Path, tag: str, identity_dirs: list,
     for d in identity_dirs:
         args += ["-i", d]
     return spawn_sdad(args, errlog=tmp / f"committee-{tag}.stderr", stdout=subprocess.DEVNULL)
-
-
-def persistent_client(identity: pathlib.Path, service, device):
-    """A crypto-enabled client whose identity (agent + keys) lives on
-    disk: the layout ``sdad committee`` loads, so a second process picks
-    up exactly this identity."""
-    from ..client import SdaClient
-    from ..crypto import Filebased, Keystore
-    from ..protocol import Agent
-
-    identity.mkdir(parents=True, exist_ok=True)
-    filestore = Filebased(identity)
-    keystore = Keystore(identity / "keys")
-    agent = filestore.get_aliased("agent", Agent.from_json)
-    if agent is None:
-        agent = SdaClient.new_agent(keystore)
-        filestore.put_aliased("agent", agent)
-    return SdaClient(agent, keystore, service, device=device)
 
 
 def multi_root_client(tmp: pathlib.Path, name: str, roots: list, device):

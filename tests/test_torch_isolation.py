@@ -121,7 +121,7 @@ def test_script_modules_are_scanned():
     ``scripts/``: every scan here covers each of them."""
     scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for name in ("__init__", "check_metrics", "trace_report", "load_soak", "flagship", "soak",
-                 "rest_ingest"):
+                 "rest_ingest", "scenarios", "crash_soak"):
         assert f"sda_tpu_torch/scripts/{name}.py" in scanned
 
 
@@ -256,6 +256,9 @@ def test_default_device_raises_without_gpu():
 @pytest.mark.parametrize("module, argv", [
     ("check_metrics", []), ("load_soak", ["--duration", "1"]), ("flagship", ["--smoke"]),
     ("soak", ["1"]),
+    ("scenarios", ["--scenarios", "register-never-submit", "--stores", "mem", "--transports",
+                   "inproc"]),
+    ("crash_soak", ["1"]),
 ])
 def test_scripts_exit_2_without_gpu(module, argv, capsys):
     """A script that builds clients defaults to CUDA: without a GPU it
