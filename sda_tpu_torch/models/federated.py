@@ -46,6 +46,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.modular import positive
+from ..telemetry.device import device_span, sync
 
 
 @dataclass(frozen=True)
@@ -251,12 +252,15 @@ class QuantizationSpec:
         round half to even (``torch.round``, as ``np.rint``), negatives as
         high residues. Non-finite values raise (they would encode as garbage
         residues and corrupt every aggregate sharing the coordinate)."""
-        flat = _as_tensor(flat, torch.float64, device)
-        if not bool(torch.isfinite(flat).all()):
-            raise ValueError("update contains non-finite values (NaN/inf)")
-        clipped = torch.clamp(flat, -self.clip, self.clip)
-        q = torch.round(clipped * self.scale).to(torch.int64)
-        return positive(q, self.modulus)
+        with device_span("fl.quantize"):
+            flat = _as_tensor(flat, torch.float64, device)
+            with sync("quantize_finite"):
+                finite = bool(torch.isfinite(flat).all())
+            if not finite:
+                raise ValueError("update contains non-finite values (NaN/inf)")
+            clipped = torch.clamp(flat, -self.clip, self.clip)
+            q = torch.round(clipped * self.scale).to(torch.int64)
+            return positive(q, self.modulus)
 
     def dequantize_sum(self, field_sum, device=None) -> torch.Tensor:
         """Revealed field sum -> float64 sum of the updates. Centered lift:
@@ -279,9 +283,10 @@ def dequantize_mean(field_sum, n: int, spec: QuantizationSpec, treedef, shapes, 
     is by a tensor on the sum's device: PyTorch's CUDA kernel turns a
     division by a host scalar into a product with its reciprocal, which can
     round differently from the reference's division."""
-    total = spec.dequantize_sum(field_sum, device)
-    count = torch.tensor(float(n), dtype=torch.float64, device=total.device)
-    return unflatten_pytree(total / count, treedef, shapes)
+    with device_span("fl.dequantize_mean"):
+        total = spec.dequantize_sum(field_sum, device)
+        count = torch.tensor(float(n), dtype=torch.float64, device=total.device)
+        return unflatten_pytree(total / count, treedef, shapes)
 
 
 class FederatedAveraging:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..telemetry.device import device_span
 from .federated import _as_tensor, flatten_pytree, tree_flatten, tree_unflatten, unflatten_pytree
 
 
@@ -41,10 +42,11 @@ def fedavg_apply(global_model, mean_update, device=None):
     u_leaves, u_def = tree_flatten(mean_update)
     if u_def != treedef:
         raise ValueError(f"update structure {u_def} differs from the model's {treedef}")
-    return tree_unflatten(treedef, [
-        _as_tensor(g, torch.float64, device) + torch.as_tensor(u, device=device)
-        for g, u in zip(g_leaves, u_leaves)
-    ])
+    with device_span("fl.apply"):
+        return tree_unflatten(treedef, [
+            _as_tensor(g, torch.float64, device) + torch.as_tensor(u, device=device)
+            for g, u in zip(g_leaves, u_leaves)
+        ])
 
 
 def child_generators(parent: torch.Generator, n: int) -> list:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..telemetry.device import device_span, sync
 from .chacha import chacha_blocks_torch, i32_bits, pad_key, rand03_zone, u32_words
 from .modular import WIDE_MAX_MODULUS, mod_sum_auto
 
@@ -59,7 +60,8 @@ def chacha_blocks_cuda(key_words: torch.Tensor, first_counter: int, n_blocks: in
     this is the plain version; on a CUDA tensor it launches the kernel or
     raises."""
     if key_words.device.type == "cpu":
-        return chacha_blocks_torch(key_words, first_counter, n_blocks)
+        with device_span("chacha.k2"):
+            return chacha_blocks_torch(key_words, first_counter, n_blocks)
     global launches
     from .. import kernels
 
@@ -75,7 +77,7 @@ def chacha_blocks_cuda(key_words: torch.Tensor, first_counter: int, n_blocks: in
     out = torch.empty((P, n_blocks, 16), dtype=torch.int32, device=key_words.device)
     if P and n_blocks:
         fn = kernels.load("chacha20").chacha20_launch
-        with torch.cuda.device(key_words.device):
+        with torch.cuda.device(key_words.device), device_span("chacha.k2"):
             stream = torch.cuda.current_stream().cuda_stream
             rc = fn(keys.data_ptr(), first_counter, n_blocks, P, out.data_ptr(), stream)
         if rc != 0:
@@ -135,20 +137,28 @@ def expand_seeds_counts(seed_words: torch.Tensor, dim: int, modulus: int,
     zone = rand03_zone(modulus)  # rand-0.3 exact: rejection always applies
     if n_blocks is None:
         n_blocks = window_blocks(dim, modulus)
-    pairs = chacha_blocks_cuda(seed_words, 0, n_blocks).view(P, n_blocks * 8, 2)
-    hi, lo = u32_words(pairs[..., 0]), u32_words(pairs[..., 1])
-    # each draw v = hi * 2^32 + lo as v - 2^63, exact in int64: unsigned
-    # order and the zone test carry over, and no shift wraps a sign
-    shifted = (hi - (1 << 31)) * (1 << 32) + lo
-    ok = shifted < zone - (1 << 63)
-    counts = torch.sum(ok, dim=1, dtype=torch.int32)
-    # stable compaction: accepted draw k lands in slot (#accepted before k),
-    # rejected draws in a dump column past every slot that is read
-    width = max(shifted.shape[1], dim) + 1
-    idx = torch.where(ok, torch.cumsum(ok, dim=1) - 1, width - 1)
-    compact = torch.zeros((P, width), dtype=torch.int64, device=dev)
-    compact.scatter_(1, idx, shifted)
-    return _mod_shifted(compact[:, :dim], modulus), counts
+    with device_span("chacha.expand"):
+        pairs = chacha_blocks_cuda(seed_words, 0, n_blocks).view(P, n_blocks * 8, 2)
+        with device_span("chacha.compact"):
+            hi, lo = u32_words(pairs[..., 0]), u32_words(pairs[..., 1])
+            # each draw v = hi * 2^32 + lo as v - 2^63, exact in int64: unsigned
+            # order and the zone test carry over, and no shift wraps a sign
+            shifted = (hi - (1 << 31)) * (1 << 32) + lo
+            ok = shifted < zone - (1 << 63)
+            counts = torch.sum(ok, dim=1, dtype=torch.int32)
+            # stable compaction: accepted draw k lands in slot (#accepted before k),
+            # rejected draws in a dump column past every slot that is read
+            width = max(shifted.shape[1], dim) + 1
+            idx = torch.where(ok, torch.cumsum(ok, dim=1) - 1, width - 1)
+            compact = torch.zeros((P, width), dtype=torch.int64, device=dev)
+            compact.scatter_(1, idx, shifted)
+            return _mod_shifted(compact[:, :dim], modulus), counts
+
+
+def _least_count(counts: torch.Tensor, site: str) -> int:
+    """The fewest accepted draws of any row: a host sync at ``site``."""
+    with sync(site):
+        return int(torch.min(counts))
 
 
 def expand_seeds_batch(seed_words: torch.Tensor, dim: int, modulus: int) -> torch.Tensor:
@@ -156,7 +166,7 @@ def expand_seeds_batch(seed_words: torch.Tensor, dim: int, modulus: int) -> torc
     device, row p bit-equal to ``expand_seed(seed_p)``; raises
     ``SlackExhausted`` if a row's window held fewer than ``dim`` draws."""
     masks, counts = expand_seeds_counts(seed_words, dim, modulus)
-    if counts.shape[0] and int(torch.min(counts)) < dim:
+    if counts.shape[0] and _least_count(counts, "batch_counts") < dim:
         raise SlackExhausted(f"seed window held < {dim} accepted draws in at least one row")
     return masks
 
@@ -170,7 +180,8 @@ def _fold_chunk(batch: torch.Tensor, dim: int, modulus: int, n_blocks: int | Non
     """One reveal fold: expand + reduce on the device; returns the (dim,)
     partial and the (P,) accepted counts."""
     masks, counts = expand_seeds_counts(batch, dim, modulus, n_blocks)
-    return _fold(masks, modulus), counts
+    with device_span("chacha.fold"):
+        return _fold(masks, modulus), counts
 
 
 #: transient device-memory budget per fold of ``combine_masks_device``: the
@@ -210,7 +221,7 @@ def combine_masks_device(seed_words, dim: int, modulus: int, *, chunk: int | Non
         batch = seeds[start : start + chunk]
         n_blocks = window_blocks(dim, modulus)
         part, counts = _fold_chunk(batch, dim, modulus, n_blocks)
-        while int(torch.min(counts)) < dim:
+        while _least_count(counts, "fold_counts") < dim:
             # a row's window ran dry: a longer window keeps the same first
             # draws, so re-expand just this chunk with twice the blocks
             n_blocks *= 2

@@ -249,24 +249,25 @@ def clerk_combine_mod(shares: torch.Tensor, p: int) -> torch.Tensor:
 
 def reconstruct(clerk_sums: torch.Tensor, indices, scheme, dim: int) -> torch.Tensor:
     """(n, B) clerk sums + surviving ``indices`` -> (dim,) aggregate."""
-    device = clerk_sums.device
-    if isinstance(scheme, AdditiveSharing):
-        return mod_sum_auto(clerk_sums.to(torch.int64), scheme.modulus, axis=0)[:dim]
-    p = scheme.prime_modulus
-    indices = list(indices)
-    if p >= (1 << 31):
-        # wide modulus: tiny matrices, exact host interpolation
-        host = shamir.reconstruct_clerk_sums_host(
-            clerk_sums.cpu().numpy(), indices, scheme, dim
-        )
-        return torch.as_tensor(np.asarray(host, dtype=np.int64), device=device)
-    L = torch.as_tensor(
-        shamir.reconstruction_matrix(scheme, indices), dtype=torch.int64, device=device
-    )  # (k, R)
-    rows = clerk_sums[torch.as_tensor(indices, device=device)].to(torch.int64)  # (R, B)
-    prods = torch.fmod(L[:, :, None] * rows[None, :, :], p)
-    secrets = torch.fmod(torch.sum(prods, dim=1), p)  # (k, B)
-    return secrets.T.reshape(-1)[:dim]
+    with telemetry.device_span("engine.reconstruct"):
+        device = clerk_sums.device
+        if isinstance(scheme, AdditiveSharing):
+            return mod_sum_auto(clerk_sums.to(torch.int64), scheme.modulus, axis=0)[:dim]
+        p = scheme.prime_modulus
+        indices = list(indices)
+        if p >= (1 << 31):
+            # wide modulus: tiny matrices, exact host interpolation
+            with telemetry.sync("reconstruct_host"):
+                host_sums = clerk_sums.cpu().numpy()
+            host = shamir.reconstruct_clerk_sums_host(host_sums, indices, scheme, dim)
+            return torch.as_tensor(np.asarray(host, dtype=np.int64), device=device)
+        L = torch.as_tensor(
+            shamir.reconstruction_matrix(scheme, indices), dtype=torch.int64, device=device
+        )  # (k, R)
+        rows = clerk_sums[torch.as_tensor(indices, device=device)].to(torch.int64)  # (R, B)
+        prods = torch.fmod(L[:, :, None] * rows[None, :, :], p)
+        secrets = torch.fmod(torch.sum(prods, dim=1), p)  # (k, B)
+        return secrets.T.reshape(-1)[:dim]
 
 
 class TorchAggregator:
@@ -431,10 +432,11 @@ def share_combine_limb_streamed(secrets: torch.Tensor, generator, plan: Aggregat
     L, LK, n = plan.limb_stacks.shape
     chunk = max(1, min(LIMB_CHUNK, ((1 << 31) - 1) // (LK * 127 * 127)))
     C, d = secrets.shape
-    acc = torch.zeros((L, -(-d // plan.input_size), n), dtype=torch.int64, device=secrets.device)
-    for start in range(0, C, chunk):
-        acc += share_combine_limb_cuda(secrets[start : start + chunk], generator, plan, draw=draw)
-    return acc
+    with telemetry.device_span("engine.share_combine"):
+        acc = torch.zeros((L, -(-d // plan.input_size), n), dtype=torch.int64, device=secrets.device)
+        for start in range(0, C, chunk):
+            acc += share_combine_limb_cuda(secrets[start : start + chunk], generator, plan, draw=draw)
+        return acc
 
 
 def masked_sum(secrets: torch.Tensor, seed_words: torch.Tensor, modulus: int, mesh) -> torch.Tensor:

@@ -32,6 +32,8 @@ import weakref
 import numpy as np
 import torch
 
+from ..telemetry.device import device_span
+
 #: launches of the limb_share_sum kernel; only the launching wrapper adds
 #: to it (plain-version calls are not counted)
 launches = 0
@@ -176,17 +178,18 @@ def _launch(secrets, randomness, stacks, k: int) -> torch.Tensor:
     if K > _MAX_K:
         raise ValueError(f"contraction K={K} exceeds the kernel's shared-memory ring (K <= {_MAX_K})")
     _check_bound(C, L, K)
-    out = torch.zeros((L, nb, n), dtype=torch.int32, device=dev)
-    if C == 0 or d == 0 or n == 0:
-        return out
-    packed = packed_stacks(stacks)
-    fn = kernels.load("limb_share_sum").limb_share_sum_launch
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(
-            secrets.data_ptr(), 0 if randomness is None else randomness.data_ptr(),
-            packed.data_ptr(), out.data_ptr(), C, d, nb, k, t, L, n, stream,
-        )
+    with device_span("limb.k1"):
+        out = torch.zeros((L, nb, n), dtype=torch.int32, device=dev)
+        if C == 0 or d == 0 or n == 0:
+            return out
+        packed = packed_stacks(stacks)
+        fn = kernels.load("limb_share_sum").limb_share_sum_launch
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(
+                secrets.data_ptr(), 0 if randomness is None else randomness.data_ptr(),
+                packed.data_ptr(), out.data_ptr(), C, d, nb, k, t, L, n, stream,
+            )
     if rc != 0:
         raise RuntimeError(f"limb_share_sum launch failed: cudaError {rc}")
     launches += 1
@@ -202,7 +205,8 @@ def participant_limb_sums_cuda(values: torch.Tensor, stacks: torch.Tensor) -> to
     kernel (as secrets (C, nb*K) with k = K and no randomness) or raises.
     """
     if values.device.type == "cpu":
-        return participant_limb_sums_torch(values, stacks)
+        with device_span("limb.k1"):
+            return participant_limb_sums_torch(values, stacks)
     if values.device.type != "cuda":
         raise ValueError(f"unsupported device {values.device}")
     if values.dtype != torch.int32 or values.ndim != 3 or not values.is_contiguous():
@@ -219,7 +223,8 @@ def share_limb_sums_cuda(
     randomness]``, without building them. On CPU tensors this is the plain
     version; on CUDA tensors it launches the kernel or raises."""
     if secrets.device.type == "cpu":
-        return share_limb_sums_torch(secrets, randomness, stacks, k)
+        with device_span("limb.k1"):
+            return share_limb_sums_torch(secrets, randomness, stacks, k)
     if secrets.device.type != "cuda":
         raise ValueError(f"unsupported device {secrets.device}")
     if secrets.ndim != 2 or randomness.ndim != 3:
@@ -241,6 +246,7 @@ def share_combine_limb_cuda(secrets: torch.Tensor, generator, plan, draw=None) -
         draw = _device_randomness
     C, d = secrets.shape
     nb = -(-d // plan.input_size)
-    randomness = draw(generator, (C, nb, plan.rand_size), plan.modulus).to(secrets.device)
+    with device_span("limb.draw"):
+        randomness = draw(generator, (C, nb, plan.rand_size), plan.modulus).to(secrets.device)
     acc = share_limb_sums_cuda(secrets, randomness, plan.limb_stacks, plan.input_size)
     return acc.to(torch.int64)  # (W=L, b, n)

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..telemetry.device import device_span, sync
+
 #: elements of the (rows, K, N) broadcast intermediate per slice (128 MiB)
 _DOT_SLICE_ELEMS = 1 << 25
 
@@ -85,11 +87,12 @@ def limb_recombine(partials: torch.Tensor, p: int) -> torch.Tensor:
             "int64); reduce the accumulator and use limb_recombine_host"
         )
     W = partials.shape[0]
-    weights = torch.tensor(
-        [pow(128, w, p) for w in range(W)], dtype=torch.int64, device=partials.device
-    ).reshape((W,) + (1,) * (partials.ndim - 1))
-    acc = torch.sum(torch.fmod(partials.to(torch.int64) * weights, p), dim=0)
-    return torch.fmod(acc, p)
+    with device_span("limb.recombine"):
+        weights = torch.tensor(
+            [pow(128, w, p) for w in range(W)], dtype=torch.int64, device=partials.device
+        ).reshape((W,) + (1,) * (partials.ndim - 1))
+        acc = torch.sum(torch.fmod(partials.to(torch.int64) * weights, p), dim=0)
+        return torch.fmod(acc, p)
 
 
 def limb_modmatmul(A: torch.Tensor, B: torch.Tensor, p: int) -> torch.Tensor:
@@ -168,7 +171,8 @@ def limb_recombine_host(partials, p: int) -> np.ndarray:
     128^w mod p`` in python ints on the tiny (W, batches, clerks)
     accumulator. Returns canonical int64 values."""
     if isinstance(partials, torch.Tensor):
-        partials = partials.cpu().numpy()
+        with sync("recombine_host"):
+            partials = partials.cpu().numpy()
     arr = np.asarray(partials, dtype=object)
     out = np.zeros(arr.shape[1:], dtype=object)
     for w in range(arr.shape[0]):

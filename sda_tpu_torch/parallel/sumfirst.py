@@ -43,6 +43,7 @@ import torch
 
 from ..ops import shamir
 from ..ops.modular import modmatmul_np
+from ..telemetry.device import device_span, sync
 from .engine import (
     AggregationPlan,
     _batch_secrets,
@@ -94,14 +95,16 @@ def value_limb_sums_chunk_pair(hi, lo, generator, plan: AggregationPlan, draw_pa
     (``rng.uniform_bits_device_pair``). Returns ``(2, nb, K)`` int64 exact
     limb sums; each half of the secrets and of the randomness is summed on
     its own (no concatenation)."""
-    batches_hi = _batch_secrets(hi, plan)  # (C, nb, k)
-    batches_lo = _batch_secrets(lo, plan)
-    C, nb = batches_hi.shape[0], batches_hi.shape[1]
-    rand_hi, rand_lo = draw_pair(generator, (C, nb, plan.rand_size))
-    dev = batches_lo.device
-    sums_lo = [exact_sum_narrow_u32(batches_lo), exact_sum_narrow_u32(rand_lo.to(dev))]
-    sums_hi = [exact_sum_narrow_u32(batches_hi), exact_sum_narrow_u32(rand_hi.to(dev))]
-    return torch.stack([torch.cat(sums_lo, dim=-1), torch.cat(sums_hi, dim=-1)])
+    nb = -(-hi.shape[1] // plan.input_size)
+    with device_span("sumfirst.draw"):
+        rand_hi, rand_lo = draw_pair(generator, (hi.shape[0], nb, plan.rand_size))
+    with device_span("sumfirst.reduce"):
+        batches_hi = _batch_secrets(hi, plan)  # (C, nb, k)
+        batches_lo = _batch_secrets(lo, plan)
+        dev = batches_lo.device
+        sums_lo = [exact_sum_narrow_u32(batches_lo), exact_sum_narrow_u32(rand_lo.to(dev))]
+        sums_hi = [exact_sum_narrow_u32(batches_hi), exact_sum_narrow_u32(rand_hi.to(dev))]
+        return torch.stack([torch.cat(sums_lo, dim=-1), torch.cat(sums_hi, dim=-1)])
 
 
 def value_limb_sums_chunk(secrets: torch.Tensor, generator, plan: AggregationPlan, draw=None) -> torch.Tensor:
@@ -117,11 +120,9 @@ def value_limb_sums_chunk(secrets: torch.Tensor, generator, plan: AggregationPla
     state).
     """
     p = plan.modulus
-    batches = _batch_secrets(secrets, plan)  # (C, nb, k)
-    C, nb = batches.shape[0], batches.shape[1]
+    C, nb = secrets.shape[0], -(-secrets.shape[1] // plan.input_size)
     if draw is None:
         draw = _device_randomness
-    randomness = draw(generator, (C, nb, plan.rand_size), p).to(batches.device)
 
     # narrow path (p <= 2^31, chunk <= 2^15): the big tensors stay in int32
     # lanes and only the tiny (nb, cols) result widens
@@ -135,11 +136,19 @@ def value_limb_sums_chunk(secrets: torch.Tensor, generator, plan: AggregationPla
             return torch.sum(x, dim=0)[None]
         return torch.stack([torch.sum(x & 0xFFFFFFFF, dim=0), torch.sum(x >> 32, dim=0)])
 
-    return torch.cat([limb_sums(batches), limb_sums(randomness)], dim=-1)
+    with device_span("sumfirst.draw"):
+        randomness = draw(generator, (C, nb, plan.rand_size), p)
+    with device_span("sumfirst.reduce"):
+        batches = _batch_secrets(secrets, plan)  # (C, nb, k)
+        randomness = randomness.to(batches.device)
+        return torch.cat([limb_sums(batches), limb_sums(randomness)], dim=-1)
 
 
 def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    with sync("sumfirst_host"):
+        return x.cpu().numpy()
 
 
 def exact_value_sums(limb_acc) -> np.ndarray:
@@ -160,15 +169,16 @@ def clerk_sums_from_limb_acc(limb_acc, plan: AggregationPlan, exact=None):
     batched secret sums (the free verification handle). Pass a precomputed
     ``exact_value_sums(limb_acc)`` as ``exact`` to reuse it."""
     p = plan.modulus
-    if exact is None:
-        exact = exact_value_sums(limb_acc)
-    vsum = exact % p  # exact sums >= 0: % is the canonical remainder
     if plan.share_matrix is None:
         raise ValueError("sum-first epilogue requires a packed share matrix")
-    S_T = plan.share_matrix.T.cpu().numpy().astype(np.int64)  # (K, n)
-    clerk = modmatmul_np(vsum, S_T, p)  # (B, n) in (-p, p)
-    clerk = np.where(clerk < 0, clerk + p, clerk).astype(np.int64)
-    return clerk.T.copy(), vsum.astype(np.int64)
+    with device_span("sumfirst.clerk_sums"):
+        if exact is None:
+            exact = exact_value_sums(limb_acc)
+        vsum = exact % p  # exact sums >= 0: % is the canonical remainder
+        S_T = plan.share_matrix.T.cpu().numpy().astype(np.int64)  # (K, n)
+        clerk = modmatmul_np(vsum, S_T, p)  # (B, n) in (-p, p)
+        clerk = np.where(clerk < 0, clerk + p, clerk).astype(np.int64)
+        return clerk.T.copy(), vsum.astype(np.int64)
 
 
 def clerk_sums_sum_first(secrets, generator, plan: AggregationPlan, draw=None) -> np.ndarray:
@@ -183,7 +193,8 @@ def clerk_sums_sum_first(secrets, generator, plan: AggregationPlan, draw=None) -
 
 def reconstruct_from_clerk_sums(clerk_sums, indices, scheme, dim: int) -> np.ndarray:
     """Host-exact reconstruction for any modulus width (tiny inputs)."""
-    return shamir.reconstruct_clerk_sums_host(_host(clerk_sums), list(indices), scheme, dim)
+    with device_span("sumfirst.reconstruct"):
+        return shamir.reconstruct_clerk_sums_host(_host(clerk_sums), list(indices), scheme, dim)
 
 
 def sharded_value_limb_sums(plan: AggregationPlan, mesh):

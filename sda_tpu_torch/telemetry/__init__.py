@@ -6,7 +6,10 @@ service -> store, the Prometheus text exposition served at
 ``GET /v1/metrics/history``, a structured JSON log sink keyed by trace id
 (``logsink``: every finished span, once ``install``ed) and the round flight
 recorder (``flight``: Chrome trace export, the per-stage waterfall and the
-critical path of a round's spans).
+critical path of a round's spans). ``device`` puts the port's layers into a
+``torch.profiler`` trace: ``device_span`` ranges (``sda.<name>``) at the
+device plane's boundaries and at its host syncs (``sync``); every ``span``
+opens the same range while a profiler records.
 
 Start the process with ``SDA_TELEMETRY=0`` (or call ``set_enabled(False)``)
 and every operation becomes a branch-and-return. ``snapshot()`` has the
@@ -15,6 +18,7 @@ reference's layout.
 
 from __future__ import annotations
 
+from .device import device_span, sync
 from .prom import CONTENT_TYPE as PROMETHEUS_CONTENT_TYPE
 from .prom import render as render_prometheus
 from .registry import DEFAULT_BUCKETS, Counter, Gauge, Histogram, Registry
@@ -59,7 +63,7 @@ def histogram(name: str, help: str = "", buckets=DEFAULT_BUCKETS, **labels) -> H
 
 def span(name: str, **attrs):
     """Context manager: time a block and record it as a span carrying the
-    current trace id."""
+    current trace id; while a profiler records, also a ``device_span``."""
     return _SPANS.span(name, **attrs)
 
 
@@ -113,6 +117,7 @@ __all__ = [
     "TimeSeriesSampler",
     "counter",
     "current_trace_id",
+    "device_span",
     "enabled",
     "gauge",
     "get_registry",
@@ -129,5 +134,6 @@ __all__ = [
     "snapshot",
     "span",
     "spans",
+    "sync",
     "trace",
 ]

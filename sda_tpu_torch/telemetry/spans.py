@@ -20,6 +20,8 @@ import time
 import uuid
 from collections import deque
 
+from .device import device_span
+
 #: the wire header carrying the trace id (client -> REST -> service -> store)
 TRACE_HEADER = "X-SDA-Trace"
 
@@ -76,22 +78,24 @@ class SpanLog:
     def span(self, name: str, **attrs):
         """Time a block; record ``{name, trace_id, start, attrs,
         duration_s}``. Disabled telemetry yields without reading a clock or
-        recording."""
-        if not self._registry.enabled:
-            yield None
-            return
-        record = {"name": name, "trace_id": _trace_var.get(), "start": time.time(),
-                  "attrs": attrs or None}
-        t0 = time.perf_counter()
-        try:
-            yield record
-        finally:
-            record["duration_s"] = time.perf_counter() - t0
-            with self._lock:
-                self._spans.append(record)
-            from .logsink import emit as _log_emit
+        recording. While a profiler records, the block is also the
+        ``device_span`` ``sda.<name>``, whether or not telemetry is on."""
+        with device_span(name):
+            if not self._registry.enabled:
+                yield None
+                return
+            record = {"name": name, "trace_id": _trace_var.get(), "start": time.time(),
+                      "attrs": attrs or None}
+            t0 = time.perf_counter()
+            try:
+                yield record
+            finally:
+                record["duration_s"] = time.perf_counter() - t0
+                with self._lock:
+                    self._spans.append(record)
+                from .logsink import emit as _log_emit
 
-            _log_emit("span", record)
+                _log_emit("span", record)
 
     def recent(self, name: str | None = None, trace_id: str | None = None) -> list:
         """Finished spans, oldest first, optionally filtered by name prefix

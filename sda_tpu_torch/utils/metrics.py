@@ -110,7 +110,8 @@ def torch_trace(log_dir: str):
     """Capture a ``torch.profiler`` trace of the block: CPU activity, plus
     CUDA activity when a GPU is present, written on exit as a Chrome trace
     (``*.pt.trace.json``, TensorBoard's profiler format) under
-    ``log_dir``. Yields the profiler."""
+    ``log_dir``, with the port's ``sda.*`` device spans and sync ranges
+    (``telemetry.device_span``, ``telemetry.sync``). Yields the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
