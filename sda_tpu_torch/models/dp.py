@@ -23,17 +23,27 @@ scalar arithmetic in the reference's own numpy operations, bit-equal to
 it. Noise is added in integer field space after quantization, the
 sensitivity includes the √d/2 rounding slack, and the field keeps
 ``NOISE_TAIL_SIGMAS``·σ_total of headroom, as in the reference.
+
+Tracing: the DP wire opens the ranges ``sda.dp.clip``, ``sda.dp.quantize``
+and ``sda.dp.noise`` (holding a sampler pass's ``sda.dp.noise.draw`` and
+``sda.dp.noise.accept``), and its one host sync a pass is the range
+``sda.sync.dp_noise_leftover``. The discrete Gaussian sampler counts its
+proposals, accepted values and leftover passes in the registry
+(``sample_discrete_gaussian``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..device import resolve_device
+from ..telemetry.device import device_span, sync
 from .federated import (
     FederatedAveraging,
     QuantizationSpec,
@@ -77,31 +87,77 @@ def sample_discrete_laplace(t: float, size, generator: torch.Generator) -> torch
     return (g[0] - g[1]).to(torch.int64)
 
 
+@functools.lru_cache(maxsize=64)
+def acceptance_rate(sigma: float) -> float:
+    """The share of discrete Laplace proposals (t = ⌊σ⌋+1) that the
+    Canonne–Kamath–Steinke test accepts at σ: Σ_y L_t(y)·exp(-(|y| -
+    σ²/t)²/2σ²), summed to |y| = 40t (the proposal's mass beyond is below
+    e^-40). 0.44-0.73 below σ = 4; above it the rate rises to √(π/2)·e^-½ =
+    0.7601734505, so past σ = 10⁴, within 1e-8 of that, it is taken there."""
+    sigma = min(sigma, 1e4)
+    t = math.floor(sigma) + 1
+    q = math.exp(-1.0 / t)
+    y = np.arange(0, 40 * t + 1, dtype=np.float64)
+    mass = (1.0 - q) / (1.0 + q) * np.exp(-y / t) * np.where(y > 0, 2.0, 1.0)
+    return float(np.sum(mass * np.exp(-((y - sigma * sigma / t) ** 2) / (2.0 * sigma * sigma))))
+
+
+def proposal_budget(sigma: float, n: int) -> int:
+    """Proposals drawn in one pass for ``n`` values: enough that the
+    accepted count falls short of ``n`` only 8·√n + 16 below its mean (more
+    than ten of its standard deviations)."""
+    return math.ceil((n + 8.0 * math.sqrt(n) + 16.0) / acceptance_rate(sigma))
+
+
+def _dgauss_pass(sigma: float, n: int, generator: torch.Generator) -> torch.Tensor:
+    """One pass of the CKS sampler for at most ``n`` values:
+    ``proposal_budget`` proposals drawn and tested on the device, then the
+    accepted ones kept in their order and cut to ``n``. The boolean index
+    reads their count from the device: the pass's one host sync
+    (``sync("dp_noise_leftover")``). Fewer than ``n`` come back only where
+    the pass fell short."""
+    t = math.floor(sigma) + 1
+    m = proposal_budget(sigma, n)
+    with device_span("dp.noise.draw"):
+        y = sample_discrete_laplace(t, m, generator)
+        u = torch.rand(m, generator=generator, dtype=torch.float64, device=generator.device)
+    with device_span("dp.noise.accept"):
+        dev = y.abs().to(torch.float64) - sigma * sigma / t
+        keep = u < torch.exp(-(dev * dev) / (2.0 * sigma * sigma))
+        with sync("dp_noise_leftover"):
+            return y[keep][:n]
+
+
 def sample_discrete_gaussian(sigma: float, size, generator: torch.Generator) -> torch.Tensor:
     """Discrete Gaussian N_Z(0, σ²): P(x) ∝ exp(-x²/2σ²) on Z, as int64 on
     the generator's device. Canonne–Kamath–Steinke rejection sampler:
     propose from discrete Laplace with t = ⌊σ⌋+1, accept with
-    exp(-(|y| - σ²/t)²/(2σ²)) in float64, over-drawing 2.5x per pass as the
-    reference does."""
+    exp(-(|y| - σ²/t)²/(2σ²)) in float64, and keep the accepted proposals
+    in their order. A pass draws a fixed budget of proposals for every
+    value (``proposal_budget``) and syncs once, as it keeps the accepted
+    ones; only while values remain does another pass draw them. One sync a
+    call, unless a pass falls short, whatever the size: a ``(P, dim)``
+    chunk of parties draws its noise at once.
+
+    Counters: ``sda_dp_noise_proposals_total`` (proposals drawn),
+    ``sda_dp_noise_accepted_total`` (values kept: the size drawn) and
+    ``sda_dp_noise_leftover_passes_total`` (passes after a call's first)."""
     if sigma <= 0:
         raise ValueError("sigma must be positive")
     shape = _shape(size)
     n = math.prod(shape)
-    t = math.floor(sigma) + 1
-    two_var = 2.0 * sigma * sigma
-    shift = sigma * sigma / t
-    parts, filled = [], 0
-    while filled < n:
-        m = max(int((n - filled) * 2.5) + 16, 32)
-        y = sample_discrete_laplace(t, m, generator)
-        dev = y.abs().to(torch.float64) - shift
-        u = torch.rand(m, generator=generator, dtype=torch.float64, device=generator.device)
-        got = y[u < torch.exp(-(dev * dev) / two_var)][: n - filled]
-        parts.append(got)
-        filled += got.numel()
-    if not parts:
-        return torch.empty(shape, dtype=torch.int64, device=generator.device)
-    return torch.cat(parts).reshape(shape)
+    values = torch.empty(0, dtype=torch.int64, device=generator.device)
+    passes = 0
+    while values.numel() < n:
+        left = n - values.numel()
+        more = _dgauss_pass(sigma, left, generator)
+        telemetry.counter("sda_dp_noise_proposals_total").inc(proposal_budget(sigma, left))
+        if passes:
+            telemetry.counter("sda_dp_noise_leftover_passes_total").inc()
+        passes += 1
+        telemetry.counter("sda_dp_noise_accepted_total").inc(more.numel())
+        values = torch.cat([values, more]) if values.numel() else more
+    return values.reshape(shape)
 
 
 def sample_skellam(mu: float, size, generator: torch.Generator) -> torch.Tensor:
@@ -316,6 +372,13 @@ class DPConfig:
         """One participant's ``(dim,)`` int64 noise draw (field units) on the
         generator's device (a fresh generator on ``device`` when None)."""
         generator = fresh_generator(device) if generator is None else generator
+        return self.party_noise_rows(scale, dim, 1, generator)[0]
+
+    def party_noise_rows(self, scale: int, dim: int, rows: int, generator: torch.Generator) -> torch.Tensor:
+        """``rows`` participants' noise at once: ``(rows, dim)`` int64 field
+        units on the generator's device, each row a party's own draw of
+        σ_party (``sample_discrete_gaussian``: one host sync for the whole
+        block), or Skellam's."""
         sigma = self.sigma_party_field(scale, dim)
         if sigma < self.min_party_sigma:
             raise ValueError(
@@ -326,19 +389,25 @@ class DPConfig:
                 "expected_participants"
             )
         if self.mechanism == "dgauss":
-            return sample_discrete_gaussian(sigma, dim, generator)
-        return sample_skellam(sigma * sigma, dim, generator)
+            return sample_discrete_gaussian(sigma, (rows, dim), generator)
+        return sample_skellam(sigma * sigma, (rows, dim), generator)
+
+
+def l2_clip_rows(flat: torch.Tensor, clip: float) -> torch.Tensor:
+    """``(P, dim)`` rows -> float64 rows of L2 norm ≤ clip, on their device
+    and with no host sync: each row's norm in float64, rows inside the clip
+    unchanged bit for bit (scaled by 1.0), the others scaled by
+    ``clip / norm``."""
+    rows = flat.to(torch.float64)
+    norm = torch.linalg.vector_norm(rows, dim=1, keepdim=True)
+    return rows * torch.where(norm > clip, clip / norm, 1.0)
 
 
 def l2_clip_vector(flat, clip: float, device=None) -> torch.Tensor:
-    """Scale ``flat`` down to L2 norm ≤ clip (no-op when already inside).
-    The norm sums in torch's order, not numpy's, so it can differ from the
-    reference's in the last bit."""
-    flat = _as_tensor(flat, torch.float64, device)
-    norm = float(torch.linalg.vector_norm(flat))
-    if norm > clip:
-        flat = flat * (clip / norm)
-    return flat
+    """Scale ``flat`` down to L2 norm ≤ clip (no-op when already inside):
+    ``l2_clip_rows`` of one row. The norm sums in torch's order, not
+    numpy's, so it can differ from the reference's in the last bit."""
+    return l2_clip_rows(_as_tensor(flat, torch.float64, device).unsqueeze(0), clip)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -424,10 +493,31 @@ class DPFederatedAveraging(_DPRoundMixin, FederatedAveraging):
 
     def wire(self, update_tree, *, generator=None) -> torch.Tensor:
         """The clipped, quantized update plus this party's noise, reduced
-        to the canonical [0, p)."""
-        flat = l2_clip_vector(self._validated_flat(update_tree), self.dp.l2_clip)
-        return torch.remainder(self.spec.quantize(flat) + self._noise(generator),
-                               self.spec.modulus)
+        to the canonical [0, p): the chunk path at P = 1."""
+        q = self.dp_clip_quantize(self._validated_flat(update_tree).unsqueeze(0))
+        return self.dp_add_noise(q, generator=generator)[0]
+
+    def dp_clip_quantize(self, flat: torch.Tensor) -> torch.Tensor:
+        """A chunk's ``(P, wire_dimension)`` updates (any float dtype) ->
+        their rows clipped to ``dp.l2_clip`` (``l2_clip_rows``) and
+        quantized: ``(P, wire_dimension)`` int64 in [0, p), noise-free. The
+        engine's path calls it, then ``dp_add_noise``."""
+        with device_span("dp.clip"):
+            clipped = l2_clip_rows(flat, self.dp.l2_clip)
+        with device_span("dp.quantize"):
+            return self.spec.quantize(clipped)
+
+    def dp_add_noise(self, q: torch.Tensor, *, generator=None) -> torch.Tensor:
+        """``(P, wire_dimension)`` quantized rows -> the wires: each row plus
+        its own party's noise (``DPConfig.party_noise_rows``, from
+        ``generator`` or this object's own), reduced to [0, p). One host
+        sync for the chunk, none per participant."""
+        with device_span("dp.noise"):
+            noise = self.dp.party_noise_rows(
+                self.spec.scale, self.wire_dimension, q.shape[0],
+                self._generator if generator is None else generator,
+            )
+            return torch.remainder(q + noise, self.spec.modulus)
 
     def submit_update(self, participant, aggregation_id, update_tree, *, generator=None) -> None:
         """Participant: ``wire`` (noise from ``generator``, or from this
