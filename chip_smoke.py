@@ -257,7 +257,7 @@ Phases, each reported on its own line:
    ``load_soak --duration 20 --rate 40 --round-size 80 --interval 1
    --ab-rounds 0`` and ``trace_report`` over its artifact, ``flagship
    --smoke`` with ``SDA_TIER_FANOUT=1`` and with the default, the sketch
-   suite ``--store sqlite``, ``soak 50`` and ``rest_ingest --n 20000
+   suite ``--store sqlite``, ``soak 50`` and ``rest_ingest --n 10000
    --backend sqlite``; one ``script`` line each, with the checks of the
    reference CI's stage 3, and none may write into ``bench-artifacts/``.
 25. churn: the churn plane (``scenarios`` and ``crash_soak``) on the card.
@@ -275,6 +275,15 @@ Phases, each reported on its own line:
    hinted write, ``3/3`` crash rounds), and none may write into
    ``bench-artifacts/``.
 
+26. dgauss (run after 13): the discrete Gaussian kernel (``dgauss_kernel``,
+   ``csrc/dgauss.cu``) at the DP cell's chunk (25 x 4,050,748 at σ_party
+   6,654.23) and at a P = 1 wire of phase 13's DP setting (1,663,370 at
+   σ_party 20,928): bit for bit against its plain twin on the card and, at
+   the wire, on the CPU, the proposals it counts on the card equal to the
+   twin's; a ``numbers`` line each (CUDA events over back-to-back launches,
+   a whole ``sample_discrete_gaussian`` call, the twin, proposals a value,
+   the bound of its int64 writes).
+
 Then the ``{"kernels": [...]}`` line. Launches: K1's on the main path, the
 fabrics, the FedAvg round, the bench's K1 route in phases 11 and 23, the
 ladder's config 3 and the model rounds; K2's in this script's parity
@@ -282,9 +291,11 @@ checks and timings and in K2x's twin (no path launches K2); K2x's on the
 masked path, the fabrics, the FedAvg round, the model rounds, the sealed
 round, the trainer rounds, the REST round, the tier round, the ingest
 round, the flight round, the CNN-width soak round and the CNN-width churn
-round. K2x's times and bound are at the masked path's chunk. And last ``{"ok":
-true, "device": ...}``. Any failed phase raises, and the script exits
-nonzero.
+round; the discrete Gaussian kernel's on the wires of the DP model rounds,
+the DP trainer and the examples' DP rounds, with phase 26's own in
+``check_launches``, its times and bound at the DP cell's chunk. K2x's
+times and bound are at the masked path's chunk. And last ``{"ok": true,
+"device": ...}``. Any failed phase raises, and the script exits nonzero.
 """
 
 from __future__ import annotations
@@ -1473,7 +1484,8 @@ def model_rounds_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     of the DP rounds, K1 and K2 against their plain versions at every shape
     the rounds gave them, their times there, and the fused expansion
     (``_expand_at``) at the weighted round's. Returns ``(k1 launches,
-    chacha20 launches, k1 max_abs_err, k2 max_abs_err)``."""
+    chacha20 launches, dgauss_kernel launches, k1 max_abs_err, k2
+    max_abs_err)``."""
     import math
 
     import numpy as np
@@ -1488,7 +1500,7 @@ def model_rounds_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
         compose_accounts,
     )
     from sda_tpu_torch.models.dp import NOISE_TAIL_SIGMAS
-    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.ops import chacha_cuda, dgauss_cuda
     from sda_tpu_torch.ops.chacha import chacha_blocks_torch
     from sda_tpu_torch.ops.chacha_cuda import default_chunk, seed_tensor, window_blocks
     from sda_tpu_torch.parallel import limb_cuda, make_plan
@@ -1509,7 +1521,7 @@ def model_rounds_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
                                   device=dev)
     drivers = [("weighted", weighted, weighted_scheme, FedAvgM(device=dev), _HostFedAvgM()),
                ("dp", dp_fed, dp_scheme, FedAdam(device=dev), _HostFedAdam())]
-    k1_total = k2_total = 0
+    k1_total = k2_total = dgauss_total = 0
     accounts = []
     for label, fed, scheme, optimizer, host_optimizer in drivers:
         spec = fed.spec
@@ -1525,9 +1537,10 @@ def model_rounds_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
                        if label == "weighted" else None)
             seeds = rng.integers(0, 1 << 32, size=(P, SEED_WORDS), dtype=np.uint64).astype(np.uint32)
             torch.cuda.synchronize()
-            limb_cuda.launches = chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
+            limb_cuda.launches = chacha_cuda.launches = chacha_cuda.slack_recoveries = dgauss_cuda.launches = 0
             out = model_round(fed, updates, global_model, optimizer, scheme, seeds, gen, weights)
-            launches = {"limb_share_sum": limb_cuda.launches, "chacha20": chacha_cuda.launches}
+            launches = {"limb_share_sum": limb_cuda.launches, "chacha20": chacha_cuda.launches,
+                        "dgauss": dgauss_cuda.launches}
             recoveries = chacha_cuda.slack_recoveries
 
             host = flat_updates.cpu().numpy()
@@ -1582,10 +1595,12 @@ def model_rounds_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
             # (d) the server step against numpy
             host_global = host_optimizer(host_global, _sorted_flat(out["mean"]))
             apply_ok = bool(np.array_equal(_sorted_flat(out["new_global"]), host_global))
-            # (e) one K1 and one K2x per chunk, one K2x per reveal fold
+            # (e) one K1 and one K2x per chunk, one K2x per reveal fold, one
+            # sampler launch per DP wire
             chunks = -(-P // FEDAVG_CHUNK)
             want = {"limb_share_sum": chunks,
-                    "chacha20": chunks + -(-P // default_chunk(fed.wire_dimension)) + recoveries}
+                    "chacha20": chunks + -(-P // default_chunk(fed.wire_dimension)) + recoveries,
+                    "dgauss": P if weights is None else 0}
             exact = wire_ok and sum_ok and mean_ok and apply_ok
             _line("model round", driver=label, round=round_index, participants=P, wire_dim=fed.wire_dimension,
                   modulus=p, omega_secrets=scheme.omega_secrets, omega_shares=scheme.omega_shares,
@@ -1599,6 +1614,7 @@ def model_rounds_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
                 raise AssertionError(f"model round ({label}) launched {launches}, expected {want}")
             k1_total += launches["limb_share_sum"]
             k2_total += launches["chacha20"]
+            dgauss_total += launches["dgauss"]
             global_model = out["new_global"]
             del out, updates, flat_updates, host, wires
     composed = compose_accounts(accounts)
@@ -1675,7 +1691,95 @@ def model_rounds_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
           bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
           card=card)
     _expand_at(card, keys, width, p, sm_clocks_per_ms, "model rounds masking and reveal fold", k2_total)
-    return k1_total, k2_total, k1_err, k2_err
+    return k1_total, k2_total, dgauss_total, k1_err, k2_err
+
+
+# phase 26: the discrete Gaussian kernel, by label: (rows, dim) and the
+# DPConfig (l2_clip, noise_multiplier, expected_participants) whose
+# sigma_party at 16 fractional bits it draws at: the DP cell's chunk
+# (sdabench/configs/sonwp-lstm-dpfedavg.json, 25 of 100 parties) and a P = 1
+# wire of phase 13's DP setting at the CNN's width
+DGAUSS_CASES = {
+    "DP cell chunk": ((25, 4_050_748), (1.0, 1.0, 100)),
+    "CNN-width wire": ((1, 1_663_370), (1.0, 1.0, MODEL_COHORT)),
+}
+DGAUSS_ITERS = 20
+
+
+def dgauss_phase(card: str, dev, seed: int) -> tuple:
+    """Phase 26: the discrete Gaussian kernel (``dgauss_kernel``,
+    ``csrc/dgauss.cu``) at each ``DGAUSS_CASES`` shape from a key drawn on
+    a CUDA generator: bit for bit against its plain twin
+    (``dgauss_cuda.dgauss_plain``) on the card from the same key and, at
+    the wire, on the CPU, with the proposals it counted on the card equal
+    to the twin's (a ``parity`` line each); then a ``numbers`` line: the
+    kernel's time per launch by CUDA events over ``DGAUSS_ITERS``
+    back-to-back launches of its wrapper (``dgauss_cuda.dgauss_cuda``, two
+    windows), a whole ``sample_discrete_gaussian`` call's, the twin's on the
+    card, proposals over values, and its bound: the int64 values written
+    once at the HBM's rate (no input is read). Returns ``(max_abs_err, ms,
+    plain_ms, bound_ms, launches)``, the middle three at the DP cell's
+    chunk, the last this phase's own launches."""
+    import math
+
+    import torch
+
+    from sda_tpu_torch.models import DPConfig, sample_discrete_gaussian
+    from sda_tpu_torch.ops import dgauss_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    max_err, first = 0, None
+    dgauss_cuda.launches = 0
+    for label, ((rows, dim), (clip, multiplier, parties)) in DGAUSS_CASES.items():
+        sigma = DPConfig(l2_clip=clip, noise_multiplier=multiplier,
+                         expected_participants=parties).sigma_party_field(1 << 16, dim)
+        n = rows * dim
+        key = dgauss_cuda.draw_key(gen)
+        acc = dgauss_cuda._accumulator(key.device)
+        before = int(acc)
+        got = dgauss_cuda.dgauss_cuda(sigma, n, key)
+        drawn = int(acc) - before
+        twins = [("its twin on the card", key)] + ([("its twin on the CPU", key.cpu())] if rows == 1 else [])
+        for against, twin_key in twins:
+            want, want_drawn = dgauss_cuda.dgauss_plain(sigma, n, twin_key)
+            err = int((got - want.to(got.device)).abs().max())
+            same = err == 0 and int(want_drawn) == drawn
+            max_err = max(max_err, err)
+            _line("parity", kernel="dgauss_kernel", case=f"{label} {rows} x {dim} at sigma {sigma}, against "
+                  f"{against}", shape=[rows, dim], proposals=drawn, twin_proposals=int(want_drawn),
+                  identical=same)
+            del want
+            if not same:
+                raise AssertionError(f"dgauss_kernel differs from {against} ({label})")
+        del got
+
+        def kernel(iters):
+            for _ in range(iters):
+                dgauss_cuda.dgauss_cuda(sigma, n, key)
+
+        event_ms = []
+        for _ in range(2):
+            kernel(2)
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            kernel(DGAUSS_ITERS)
+            stop.record()
+            torch.cuda.synchronize()
+            event_ms.append(start.elapsed_time(stop) / DGAUSS_ITERS)
+        sample_ms = _time_ms(lambda: sample_discrete_gaussian(sigma, (rows, dim), gen), iters=DGAUSS_ITERS,
+                             warmup=2)
+        plain_ms = _time_ms(lambda: dgauss_cuda.dgauss_plain(sigma, n, key), iters=1)
+        moved = n * 8
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        _line("numbers", kernel="dgauss_kernel", path=label, shape=[rows, dim], sigma=sigma,
+              event_ms=event_ms, sample_ms=sample_ms, plain_ms=plain_ms, proposals_per_value=drawn / n,
+              bytes=moved, bound_ms=bound_ms, bound_by="bytes", library_ms=None, card=card)
+        if first is None:
+            first = (min(event_ms), plain_ms, bound_ms)
+        if not 1.30 < drawn / n < 1.50 and math.floor(sigma) > 10:
+            raise AssertionError(f"dgauss_kernel drew {drawn / n} proposals a value ({label})")
+    return (max_err, *first, dgauss_cuda.launches)
 
 
 # phase 11: ``python -m sda_tpu_torch.bench`` runs, by label. In this process
@@ -2552,7 +2656,8 @@ def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     recipient's fold of 10 seeds), the restored trainer bit-equal to the
     live one (model, round index, privacy ledger, FedAdam's state), the
     last checkpoint on disk; then ``_k2_at_fold`` on the rounds' seeds.
-    Returns ``(chacha20 launches, k2 max_abs_err)``."""
+    Each round must launch the sampler once a wire. Returns ``(chacha20
+    launches, dgauss_kernel launches, k2 max_abs_err)``."""
     import math
     import tempfile
 
@@ -2562,7 +2667,7 @@ def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     from sda_tpu_torch.client import SdaClient
     from sda_tpu_torch.crypto import Keystore, masking
     from sda_tpu_torch.models import DPConfig, DPFederatedAveraging, FedAdam, FederatedTrainer
-    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.ops import chacha_cuda, dgauss_cuda
     from sda_tpu_torch.server import new_mem_server
 
     P = SEALED_COHORT
@@ -2586,7 +2691,7 @@ def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
                                       for name, shape in leaves.items()}
                               for layer, leaves in FEDAVG_MODEL.items()}
 
-    k2_total, folds = 0, []
+    k2_total, dgauss_total, folds = 0, 0, []
     real_combine = masking.combine_masks_device
 
     def timed_combine(seeds, *args, **kwargs):
@@ -2646,13 +2751,14 @@ def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
                 seconds.clear()
                 del folds[:]
                 torch.cuda.synchronize()
-                chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
+                chacha_cuda.launches = chacha_cuda.slack_recoveries = dgauss_cuda.launches = 0
                 t0 = time.perf_counter()
                 trainer.run_round(recipient, recipient_key, scheme, submitters, workers,
                                   parallel_submit=TRAINER_PARALLEL)
                 torch.cuda.synchronize()
                 seconds["wall_s"] = time.perf_counter() - t0
                 launches, recoveries = chacha_cuda.launches, chacha_cuda.slack_recoveries
+                sampled = dgauss_cuda.launches
                 seconds["mask_combine_s"] = sum(a.elapsed_time(b) for (a, b), _ in folds) / 1e3
                 round_seeds = np.concatenate([s for _, s in folds]) if folds else None
                 field_sum = revealed[0]
@@ -2664,18 +2770,20 @@ def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
                 account = fed.privacy()
                 checks = {"field_sum": sum_ok, "server_step": apply_ok,
                           "k2_once": launches == 1 + recoveries and len(folds) == 1,
+                          "dgauss_per_wire": sampled == P,
                           "checkpoint": path.exists(), "ledger": len(trainer.round_rhos) == round_index + 1}
                 _line("trainer round", round=round_index, participants=P, clerks=SEALED_CLERKS, dim=dim,
                       modulus=p, frac_bits=spec.frac_bits,
                       scheme={"k": scheme.secret_count, "t": scheme.privacy_threshold, "n": scheme.share_count},
                       parallel_submit=TRAINER_PARALLEL, optimizer="FedAdam", **seconds,
                       checkpoint_bytes=path.stat().st_size if path.exists() else None,
-                      launches={"chacha20": launches}, slack_recoveries=recoveries,
+                      launches={"chacha20": launches, "dgauss": sampled}, slack_recoveries=recoveries,
                       epsilon=account.epsilon, rho=account.rho, exact=all(checks.values()),
                       checks=checks, card=card)
                 if not all(checks.values()):
                     raise AssertionError(f"trainer round {round_index}: a check failed: {checks}")
                 k2_total += launches
+                dgauss_total += sampled
         finally:
             masking.combine_masks_device = real_combine
         composed = trainer.cumulative_privacy()
@@ -2710,7 +2818,7 @@ def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     # K2 and the fused expansion at the rounds' fold shape, on the last round's seeds
     k2_err = _k2_at_fold(card, dev, [(None, round_seeds)], dim, p, sm_clocks_per_ms, k2_total,
                          "trainer round")
-    return k2_total, k2_err
+    return k2_total, dgauss_total, k2_err
 
 
 # phase 16: the analytics entry points, each as a user runs it, in this
@@ -2739,14 +2847,15 @@ def _countmin_table(items_per_party, width: int, depth: int, seed: int):
     return grid.reshape(-1)
 
 
-def analytics_phase(card: str, dev, seed: int) -> None:
+def analytics_phase(card: str, dev, seed: int) -> int:
     """Phase 16: ``main(["--device", "cuda"])`` of the port's three
     analytics examples, each of which must return 0 (they check their own
     results and raise otherwise); then one ``SecureHistogram`` round and
     one ``CountMinSketch`` round on CUDA clients, their revealed count
     vector and table held exactly against numpy on the same inputs. Every
     cohort is below the reveal's device threshold: the phase must launch
-    K2x no time (the host route)."""
+    K2x no time (the host route). Returns the examples' ``dgauss_kernel``
+    launches (their DP rounds' wires)."""
     import contextlib
     import importlib
     import io
@@ -2757,14 +2866,15 @@ def analytics_phase(card: str, dev, seed: int) -> None:
     from sda_tpu_torch.client import SdaClient
     from sda_tpu_torch.crypto import Keystore
     from sda_tpu_torch.models import SecureHistogram
-    from sda_tpu_torch.ops import chacha_cuda
+    from sda_tpu_torch.ops import chacha_cuda, dgauss_cuda
     from sda_tpu_torch.server import new_mem_server
     from sda_tpu_torch.sketches import CountMinSketch, SketchQuery
 
-    chacha_cuda.launches = 0
+    chacha_cuda.launches = dgauss_cuda.launches = 0
     walls = {}
     for name in EXAMPLES:
         module = importlib.import_module(f"sda_tpu_torch.examples.{name}")
+        sampled = dgauss_cuda.launches
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -2772,9 +2882,10 @@ def analytics_phase(card: str, dev, seed: int) -> None:
         walls[name] = time.perf_counter() - t0
         lines = out.getvalue().splitlines()
         _line("example", name=name, rc=rc, wall_s=walls[name], lines=len(lines), last=lines[-1],
-              card=card)
+              dgauss_launches=dgauss_cuda.launches - sampled, card=card)
         if rc != 0:
             raise AssertionError(f"example {name} returned {rc}")
+    examples_dgauss = dgauss_cuda.launches
 
     rng = np.random.default_rng(seed)
     values = [rng.random(HISTOGRAM_VALUES) for _ in range(ANALYTICS_PARTICIPANTS)]
@@ -2823,6 +2934,7 @@ def analytics_phase(card: str, dev, seed: int) -> None:
           launches={"chacha20": chacha_cuda.launches}, exact=all(checks.values()), checks=checks, card=card)
     if not all(checks.values()):
         raise AssertionError(f"analytics: a check failed: {checks}")
+    return examples_dgauss
 
 
 # phase 17: the REST deployment. Phase 14's round with every member on its
@@ -3999,7 +4111,7 @@ SCRIPTS_SOAK_ARGV = ["--duration", "20", "--rate", "40", "--round-size", "80", "
                      "--ab-rounds", "0"]
 SCRIPTS_SOAK_ROUNDS = 50
 # reduced from the script's default of 100,000 rows to fit the phase's time
-SCRIPTS_INGEST_N, SCRIPTS_INGEST_DEFAULT_N = 20_000, 100_000
+SCRIPTS_INGEST_N, SCRIPTS_INGEST_DEFAULT_N = 10_000, 100_000
 # the CNN-width soak round: the paper's per-round cohort of 10 rows
 SCRIPTS_WIDE_ROWS = 10
 
@@ -4881,16 +4993,18 @@ def main(argv=None) -> int:
     # -- 12. the baseline ladder's device rows and the fabric demo ---------------
     ladder_k1, ladder_k1_err = drivers_phase(card, dev, args.seed)
     # -- 13. weighted and DP FedAvg rounds with server optimizers ----------------
-    model_k1, model_k2x, model_k1_err, model_k2_err = model_rounds_phase(
+    model_k1, model_k2x, model_dgauss, model_k1_err, model_k2_err = model_rounds_phase(
         card, dev, args.seed, sm_clocks_per_ms)
+    # -- 26. the discrete Gaussian kernel at the DP cell's chunk and a DP wire ------
+    dgauss_err, dgauss_ms, dgauss_plain_ms, dgauss_bound_ms, dgauss_checks = dgauss_phase(card, dev, args.seed)
     # -- 21. the native batch layer against its plain versions, which 14-19 ride ---
     native_phase(card, dev, args.seed)
     # -- 14. the sealed aggregation round through the protocol plane ---------------
     sealed_k2x, sealed_k2_err = sealed_round_phase(card, dev, args.seed, sm_clocks_per_ms)
     # -- 15. DP federated training on the sealed round, checkpoints and a restore -
-    trainer_k2x, trainer_k2_err = trainer_phase(card, dev, args.seed, sm_clocks_per_ms)
+    trainer_k2x, trainer_dgauss, trainer_k2_err = trainer_phase(card, dev, args.seed, sm_clocks_per_ms)
     # -- 16. the analytics examples; every cohort below the device threshold -----
-    analytics_phase(card, dev, args.seed)
+    examples_dgauss = analytics_phase(card, dev, args.seed)
     # -- 17. the REST deployment: phase 14's round over loopback HTTP, the CLIs ---
     rest_k2x, rest_k2_err = rest_round_phase(card, dev, args.seed, sm_clocks_per_ms)
     # -- 18. the scale-out plane: a tiered round over two sharded frontends --------
@@ -4953,6 +5067,26 @@ def main(argv=None) -> int:
         "bound_ms": max(expand_bytes_ms, expand_ops_ms),
         "bound_by": "bytes" if expand_bytes_ms >= expand_ops_ms else "operations",
         # no PyTorch call computes ChaCha20
+        "library_ms": None,
+    }, {
+        "name": "dgauss_kernel",
+        "route": "cuda",
+        "source": "sda_tpu_torch/csrc/dgauss.cu",
+        # no TPU kernel: the JAX package draws its DP noise with numpy on the host
+        "replaces": None,
+        # the paths' launches: the DP model rounds' wires, the DP trainer's
+        # and the examples', each path's counter zeroed before it and read
+        # after it
+        "launches": model_dgauss + trainer_dgauss + examples_dgauss,
+        # phase 26's own: its parity checks and timings
+        "check_launches": dgauss_checks,
+        "max_abs_err": dgauss_err,
+        "ms": dgauss_ms,
+        # its twin on the card (the same stream in torch ops)
+        "plain_ms": dgauss_plain_ms,
+        "bound_ms": dgauss_bound_ms,
+        "bound_by": "bytes",
+        # no PyTorch call draws the discrete Gaussian
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,9 @@ KERNELS = {
         "chacha20_expand_launch": [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_ulonglong] * 3
                                   + [ctypes.c_void_p] * 4,
     },
+    "dgauss": {
+        "dgauss_launch": [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_double] * 3 + [ctypes.c_void_p] * 3,
+    },
 }
 
 NVCC_FLAGS = [

@@ -25,16 +25,14 @@ sensitivity includes the √d/2 rounding slack, and the field keeps
 ``NOISE_TAIL_SIGMAS``·σ_total of headroom, as in the reference.
 
 Tracing: the DP wire opens the ranges ``sda.dp.clip``, ``sda.dp.quantize``
-and ``sda.dp.noise`` (holding a sampler pass's ``sda.dp.noise.draw`` and
-``sda.dp.noise.accept``), and its one host sync a pass is the range
-``sda.sync.dp_noise_leftover``. The discrete Gaussian sampler counts its
-proposals, accepted values and leftover passes in the registry
-(``sample_discrete_gaussian``).
+and ``sda.dp.noise``, which holds the sampler's ``sda.dp.noise.draw``: on
+the card one launch of ``ops/dgauss_cuda.py``'s kernel, with no host sync.
+The discrete Gaussian sampler counts its proposals and accepted values in
+the registry (``sample_discrete_gaussian``).
 """
 
 from __future__ import annotations
 
-import functools
 import math
 from dataclasses import dataclass
 
@@ -43,7 +41,9 @@ import torch
 
 from .. import telemetry
 from ..device import resolve_device
-from ..telemetry.device import device_span, sync
+from ..ops import dgauss_cuda
+from ..ops.dgauss_cuda import acceptance_rate  # noqa: F401 - one of dp's names
+from ..telemetry.device import device_span
 from .federated import (
     FederatedAveraging,
     QuantizationSpec,
@@ -87,45 +87,15 @@ def sample_discrete_laplace(t: float, size, generator: torch.Generator) -> torch
     return (g[0] - g[1]).to(torch.int64)
 
 
-@functools.lru_cache(maxsize=64)
-def acceptance_rate(sigma: float) -> float:
-    """The share of discrete Laplace proposals (t = ⌊σ⌋+1) that the
-    Canonne–Kamath–Steinke test accepts at σ: Σ_y L_t(y)·exp(-(|y| -
-    σ²/t)²/2σ²), summed to |y| = 40t (the proposal's mass beyond is below
-    e^-40). 0.44-0.73 below σ = 4; above it the rate rises to √(π/2)·e^-½ =
-    0.7601734505, so past σ = 10⁴, within 1e-8 of that, it is taken there."""
-    sigma = min(sigma, 1e4)
-    t = math.floor(sigma) + 1
-    q = math.exp(-1.0 / t)
-    y = np.arange(0, 40 * t + 1, dtype=np.float64)
-    mass = (1.0 - q) / (1.0 + q) * np.exp(-y / t) * np.where(y > 0, 2.0, 1.0)
-    return float(np.sum(mass * np.exp(-((y - sigma * sigma / t) ** 2) / (2.0 * sigma * sigma))))
-
-
-def proposal_budget(sigma: float, n: int) -> int:
-    """Proposals drawn in one pass for ``n`` values: enough that the
-    accepted count falls short of ``n`` only 8·√n + 16 below its mean (more
-    than ten of its standard deviations)."""
-    return math.ceil((n + 8.0 * math.sqrt(n) + 16.0) / acceptance_rate(sigma))
-
-
 def _dgauss_pass(sigma: float, n: int, generator: torch.Generator) -> torch.Tensor:
-    """One pass of the CKS sampler for at most ``n`` values:
-    ``proposal_budget`` proposals drawn and tested on the device, then the
-    accepted ones kept in their order and cut to ``n``. The boolean index
-    reads their count from the device: the pass's one host sync
-    (``sync("dp_noise_leftover")``). Fewer than ``n`` come back only where
-    the pass fell short."""
-    t = math.floor(sigma) + 1
-    m = proposal_budget(sigma, n)
+    """``n`` values of the CKS sampler, drawn and tested on the generator's
+    device from a fresh key of ``generator`` (``dgauss_cuda.sample``): on a
+    CUDA generator one launch of the kernel, which fills each segment of
+    ``dgauss_cuda.SEGMENT`` values with its first accepted proposals, with
+    no compaction and no host sync; on a CPU generator the kernel's plain
+    twin, the same stream bit for bit."""
     with device_span("dp.noise.draw"):
-        y = sample_discrete_laplace(t, m, generator)
-        u = torch.rand(m, generator=generator, dtype=torch.float64, device=generator.device)
-    with device_span("dp.noise.accept"):
-        dev = y.abs().to(torch.float64) - sigma * sigma / t
-        keep = u < torch.exp(-(dev * dev) / (2.0 * sigma * sigma))
-        with sync("dp_noise_leftover"):
-            return y[keep][:n]
+        return dgauss_cuda.sample(sigma, n, generator)
 
 
 def sample_discrete_gaussian(sigma: float, size, generator: torch.Generator) -> torch.Tensor:
@@ -133,30 +103,22 @@ def sample_discrete_gaussian(sigma: float, size, generator: torch.Generator) -> 
     the generator's device. Canonne–Kamath–Steinke rejection sampler:
     propose from discrete Laplace with t = ⌊σ⌋+1, accept with
     exp(-(|y| - σ²/t)²/(2σ²)) in float64, and keep the accepted proposals
-    in their order. A pass draws a fixed budget of proposals for every
-    value (``proposal_budget``) and syncs once, as it keeps the accepted
-    ones; only while values remain does another pass draw them. One sync a
-    call, unless a pass falls short, whatever the size: a ``(P, dim)``
-    chunk of parties draws its noise at once.
+    in their order within each segment. One ``_dgauss_pass`` a call,
+    whatever the size: a ``(P, dim)`` chunk of parties draws its noise at
+    once.
 
-    Counters: ``sda_dp_noise_proposals_total`` (proposals drawn),
-    ``sda_dp_noise_accepted_total`` (values kept: the size drawn) and
-    ``sda_dp_noise_leftover_passes_total`` (passes after a call's first)."""
+    Counters: ``sda_dp_noise_proposals_total`` (proposals drawn; from the
+    card, folded in when the registry is read), ``sda_dp_noise_accepted_total``
+    (values kept: the size drawn) and ``sda_dp_noise_leftover_passes_total``
+    (kept registered; no pass is left over since the segment fill, so it
+    reads 0)."""
     if sigma <= 0:
         raise ValueError("sigma must be positive")
     shape = _shape(size)
     n = math.prod(shape)
-    values = torch.empty(0, dtype=torch.int64, device=generator.device)
-    passes = 0
-    while values.numel() < n:
-        left = n - values.numel()
-        more = _dgauss_pass(sigma, left, generator)
-        telemetry.counter("sda_dp_noise_proposals_total").inc(proposal_budget(sigma, left))
-        if passes:
-            telemetry.counter("sda_dp_noise_leftover_passes_total").inc()
-        passes += 1
-        telemetry.counter("sda_dp_noise_accepted_total").inc(more.numel())
-        values = torch.cat([values, more]) if values.numel() else more
+    values = _dgauss_pass(sigma, n, generator)
+    telemetry.counter("sda_dp_noise_accepted_total").inc(n)
+    telemetry.counter("sda_dp_noise_leftover_passes_total")
     return values.reshape(shape)
 
 
@@ -377,8 +339,8 @@ class DPConfig:
     def party_noise_rows(self, scale: int, dim: int, rows: int, generator: torch.Generator) -> torch.Tensor:
         """``rows`` participants' noise at once: ``(rows, dim)`` int64 field
         units on the generator's device, each row a party's own draw of
-        σ_party (``sample_discrete_gaussian``: one host sync for the whole
-        block), or Skellam's."""
+        σ_party (``sample_discrete_gaussian``: one launch for the whole
+        block on the card, no host sync), or Skellam's."""
         sigma = self.sigma_party_field(scale, dim)
         if sigma < self.min_party_sigma:
             raise ValueError(
@@ -510,8 +472,8 @@ class DPFederatedAveraging(_DPRoundMixin, FederatedAveraging):
     def dp_add_noise(self, q: torch.Tensor, *, generator=None) -> torch.Tensor:
         """``(P, wire_dimension)`` quantized rows -> the wires: each row plus
         its own party's noise (``DPConfig.party_noise_rows``, from
-        ``generator`` or this object's own), reduced to [0, p). One host
-        sync for the chunk, none per participant."""
+        ``generator`` or this object's own), reduced to [0, p). No host
+        sync on the card: one sampler launch for the chunk."""
         with device_span("dp.noise"):
             noise = self.dp.party_noise_rows(
                 self.spec.scale, self.wire_dimension, q.shape[0],

@@ -2,8 +2,10 @@
 CPU: the batched discrete Gaussian sampler against the law, the row clip
 against the one-vector clip, ``DPFederatedAveraging.wire`` through the same
 code at P = 1, the engine's two steps against the benchmark's plain
-reference (``sdabench/reference/fedavg_dp.py``), and the sampler's host
-syncs, ranges and counters under a CPU profiler."""
+reference (``sdabench/reference/fedavg_dp.py``), the sampler's ranges and
+counters under a CPU profiler, and its segment fill
+(``sda_tpu_torch/ops/dgauss_cuda.py``, the kernel's plain twin) against
+torch's own Philox4x32-10 and a scalar loop over the same stream."""
 
 import math
 
@@ -15,6 +17,7 @@ from scipy import stats
 from sda_tpu.models import dp as jdp
 from sda_tpu_torch import telemetry
 from sda_tpu_torch.models import dp
+from sda_tpu_torch.ops import dgauss_cuda
 from sdabench.reference import fedavg_dp as ref
 
 CPU = "cpu"
@@ -40,12 +43,13 @@ def _chi2_pvalue(draws: np.ndarray, sigma: float) -> float:
     return float(stats.chi2.sf(chi2, observed.size - 1))
 
 
-@pytest.mark.parametrize("sigma", [3.0, 40.0])
+@pytest.mark.parametrize("sigma", [0.5, 3.0, 40.0])
 def test_batched_sampler_follows_the_law(sigma):
     """10^6 draws as one (100, 10,000) block of parties: a χ² goodness of
     fit against the reference's pmf. At a p-value of 1e-6 a sound sampler
     fails once in a million seeds; the discrete Laplace proposal unfiltered
-    (its tails e^(-|x|/t)) reads far below it, as does a σ 1 % off."""
+    (its tails e^(-|x|/t)) reads far below it, as does a σ 1 % off. At
+    σ = 0.5 the segment fill keeps about a third of its proposals."""
     draws = dp.sample_discrete_gaussian(sigma, (100, 10_000), _gen(int(sigma))).numpy().ravel()
     assert _chi2_pvalue(draws, sigma) > 1e-6
     laplace = dp.sample_discrete_laplace(math.floor(sigma) + 1, 1_000_000, _gen(1)).numpy()
@@ -175,7 +179,7 @@ def _ranges(run) -> dict:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         run()
     for event in prof.events():
-        if event.name.startswith("sda.dp") or event.name == "sda.sync.dp_noise_leftover":
+        if event.name.startswith(("sda.dp", "sda.sync.")):
             counts[event.name] = counts.get(event.name, 0) + 1
     return counts
 
@@ -188,62 +192,189 @@ NAMES = ("sda_dp_noise_proposals_total", "sda_dp_noise_accepted_total", "sda_dp_
 
 
 def test_a_chunk_syncs_once_and_counts_its_draws():
-    """25 parties' noise in one call: one ``sync.dp_noise_leftover`` range,
-    not one a party, inside ``dp.noise`` with one ``draw`` and one
-    ``accept``; the counters add the pass's proposal budget, 25 x dim
-    accepted values and no leftover pass."""
+    """25 parties' noise in one call: no ``sync.`` range at all (the segment
+    fill keeps no count on the host), ``dp.noise`` with one ``draw``; the
+    counters add the call's proposals, 25 x dim accepted values and no
+    leftover pass, and proposals over accepted read 1.30-1.50 (1/0.760 for
+    the acceptance, plus the last step's surplus of each 256-value
+    segment)."""
     fed = _fed(seed=15)
     q = fed.dp_clip_quantize(torch.zeros((25, DIM)))
     before = [_counter(name) for name in NAMES]
+    launched = dgauss_cuda.launches
     counts = _ranges(lambda: fed.dp_add_noise(q))
     after = [_counter(name) for name in NAMES]
-    assert counts == {"sda.dp.noise": 1, "sda.dp.noise.draw": 1, "sda.dp.noise.accept": 1,
-                      "sda.sync.dp_noise_leftover": 1}
-    sigma = fed.dp.sigma_party_field(fed.spec.scale, DIM)
-    assert [b - a for a, b in zip(before, after)] == [dp.proposal_budget(sigma, 25 * DIM), 25 * DIM, 0]
-    clip = _ranges(lambda: fed.dp_clip_quantize(torch.ones((25, DIM))))
-    assert clip == {"sda.dp.clip": 1, "sda.dp.quantize": 1}
-
-
-def test_leftover_passes_sync_once_each(monkeypatch):
-    """With a budget of one proposal a value, a pass leaves about 30 % of them:
-    the sampler redraws them in further passes, each with one sync, until
-    none remain; the values still follow the law, and the counters count
-    every pass's proposals and the values kept."""
-    monkeypatch.setattr(dp, "proposal_budget", lambda sigma, n: n)
-    before = [_counter(name) for name in NAMES]
-    holder = {}
-    counts = _ranges(lambda: holder.update(x=dp.sample_discrete_gaussian(3.0, (40, 2_500), _gen(16))))
-    after = [_counter(name) for name in NAMES]
+    assert counts == {"sda.dp.noise": 1, "sda.dp.noise.draw": 1}
     proposals, accepted, leftover = (b - a for a, b in zip(before, after))
-    assert accepted == 100_000 and leftover >= 5
-    assert counts["sda.sync.dp_noise_leftover"] == leftover + 1 == counts["sda.dp.noise.draw"]
-    assert 100_000 < proposals < 2 * 100_000
-    draws = holder["x"]
-    assert draws.shape == (40, 2_500) and _chi2_pvalue(draws.numpy().ravel(), 3.0) > 1e-6
+    assert accepted == 25 * DIM and leftover == 0
+    assert 1.30 < proposals / accepted < 1.50
+    assert proposals % dgauss_cuda.LANES == 0
+    assert dgauss_cuda.launches == launched  # the CPU runs the plain twin
+    clip = _ranges(lambda: fed.dp_clip_quantize(torch.ones((25, DIM))))
+    assert clip == {"sda.dp.clip": 1, "sda.dp.quantize": 1, "sda.sync.quantize_finite": 1}
+
+
+def _philox_int(key: int, counter) -> list:
+    """Philox4x32-10 in Python integers (Random123's philox4x32_R, R = 10)."""
+    k0, k1 = key & 0xFFFFFFFF, key >> 32
+    c = list(counter)
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + 0x9E3779B9) & 0xFFFFFFFF, (k1 + 0xBB67AE85) & 0xFFFFFFFF
+        p0, p1 = 0xD2511F53 * c[0], 0xCD9E8D57 * c[2]
+        c = [(p1 >> 32) ^ c[1] ^ k0, p1 & 0xFFFFFFFF, (p0 >> 32) ^ c[3] ^ k1, p0 & 0xFFFFFFFF]
+    return c
+
+
+def _segment_fill_loop(sigma: float, n: int, key: int):
+    """The sampler as a scalar loop: segment by segment, step by step, lane
+    by lane over the Philox stream at counter (32 step + lane, segment),
+    each accepted proposal taking the segment's next slot until the segment
+    holds its ``SEGMENT`` values (fewer in the last); returns the values and
+    the proposals drawn (32 a step)."""
+    t = math.floor(sigma) + 1
+    center, scale = sigma * sigma / t, -1.0 / (2.0 * sigma * sigma)
+    size = dgauss_cuda.SEGMENT
+    out, drawn = [], 0
+    for segment in range(-(-n // size)):
+        length, kept, step = min(size, n - segment * size), [], 0
+        while len(kept) < length:
+            for lane in range(32):
+                offset = 32 * step + lane
+                w = _philox_int(key, (offset & 0xFFFFFFFF, offset >> 32, segment & 0xFFFFFFFF, segment >> 32))
+                a, b, negative = (w[0] << 21) | (w[1] >> 11), (w[2] << 21) | (w[3] >> 11), w[1] & 1
+                g = math.floor(math.log((a + 1) * 2.0**-53) * -t)
+                dev = g - center
+                if not (negative and g == 0) and b * 2.0**-53 < math.exp((dev * dev) * scale) and len(kept) < length:
+                    kept.append(-g if negative else g)
+            step += 1
+            drawn += 32
+        out += kept
+    return out, drawn
+
+
+def test_leftover_passes_sync_once_each():
+    """The segment fill that took the place of the leftover passes: the
+    twin's values equal a scalar loop over the same Philox stream, accepted
+    proposals in (step, lane) order, segment by segment, and so does its
+    count of proposals; at n not a multiple of the segment, at a
+    low-acceptance σ (0.5, a third kept), at σ = 3 and at the DP cell's σ."""
+    for sigma, n, seed in ((0.5, 700, 16), (3.0, 513, 17), (6654.23, 300, 18), (40.0, 31, 19)):
+        key = dgauss_cuda.draw_key(_gen(seed))
+        values, drawn = dgauss_cuda.dgauss_plain(sigma, n, key)
+        want, want_drawn = _segment_fill_loop(sigma, n, int(key) % (1 << 64))
+        assert values.tolist() == want and int(drawn) == want_drawn, (sigma, n)
+
+
+#: (key, subsequence, offset) -> the four words of torch's ``at::Philox4_32``
+#: (``ATen/core/PhiloxRNGEngine.h``: key = seed, counter = (offset as two
+#: words, subsequence as two words)), from a C++ program built against it
+PHILOX_VECTORS = {
+    (0x0000000000000000, 0x0, 0x0): (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8),
+    (0x00003D30F19CD101, 0x0, 0x0): (0x64A3E0F6, 0xD72E25AB, 0x0BE1367B, 0x53ECCF2D),
+    (0xFFFFFFFFFFFFFFFF, 0xFFFFFFFFFFFFFFFF, 0xFFFFFFFF): (0xA426518D, 0x56F1532C, 0x771887B1, 0xCD81A4C4),
+    (0x0123456789ABCDEF, 0x6092D, 0x1F): (0x4CD4331C, 0x05592A16, 0x314C0929, 0x2F2D6DF6),
+    (0xDEADBEEFCAFEF00D, 0x7, 0x7D11): (0x4E975ED8, 0xDFB4E12A, 0x2CB3A546, 0x2559E2AF),
+    (0x8000000000000000, 0x10000000000, 0x100000005): (0xB1261262, 0xE69DFF44, 0xB02D3E64, 0x01663D35),
+}
+
+
+@pytest.mark.parametrize("case", list(PHILOX_VECTORS), ids=lambda c: f"{c[0]:x}-{c[1]:x}-{c[2]:x}")
+def test_twin_philox_matches_torch_philox4_32(case):
+    """The twin's Philox4x32-10 (int64 tensors, 48-bit partial products)
+    and the scalar loop's both give torch's words; the first is Random123's
+    known answer for a zero key and counter."""
+    key, subsequence, offset = case
+    as_i64 = key - (1 << 64) if key >> 63 else key
+
+    def word(v):
+        return torch.tensor(v, dtype=torch.int64)
+
+    got = dgauss_cuda.philox(word(as_i64), word(offset & 0xFFFFFFFF), word(offset >> 32),
+                             word(subsequence & 0xFFFFFFFF), word(subsequence >> 32))
+    want = list(PHILOX_VECTORS[case])
+    assert [int(w) for w in got] == want
+    assert _philox_int(key, (offset & 0xFFFFFFFF, offset >> 32, subsequence & 0xFFFFFFFF, subsequence >> 32)) == want
+
+
+def test_moments_at_the_dp_cells_sigma():
+    """10^6 draws at σ_party = 6,654.23: the mean square within 6·√(2/N) of
+    σ² (N_Z(0, σ²)'s variance is σ² to 1e-300 at this σ), the mean within 6
+    standard errors of 0, the excess kurtosis within 6·√(24/N) of 0; the
+    discrete Laplace proposal unfiltered reads a kurtosis of 3."""
+    sigma, n = 6654.23, 1_000_000
+    draws = dp.sample_discrete_gaussian(sigma, (4, n // 4), _gen(21)).to(torch.float64).ravel()
+    moments = ref.Moments()
+    moments.add(draws)
+    mean, square, kurtosis = moments.stats()
+    assert abs(square / sigma**2 - 1) < 6 * math.sqrt(2 / n)
+    assert abs(mean) < 6 * sigma / math.sqrt(n)
+    assert abs(kurtosis) < 6 * math.sqrt(24 / n)
+    laplace = ref.Moments()
+    laplace.add(dp.sample_discrete_laplace(6655, n, _gen(22)).to(torch.float64))
+    assert laplace.stats()[2] > 2.5
+
+
+def test_same_seed_same_draws_and_successive_calls_differ():
+    """A generator seeded alike gives the same draws; each call takes a
+    fresh key from it, so two successive calls differ, and a call after
+    other draws on the generator differs too."""
+    a = dp.sample_discrete_gaussian(20.0, (3, 1000), _gen(23))
+    assert torch.equal(a, dp.sample_discrete_gaussian(20.0, (3, 1000), _gen(23)))
+    generator = _gen(23)
+    first = dp.sample_discrete_gaussian(20.0, (3, 1000), generator)
+    second = dp.sample_discrete_gaussian(20.0, (3, 1000), generator)
+    assert torch.equal(first, a) and not torch.equal(first, second)
+    assert (first == second).double().mean() < 0.1
+
+
+class _Event:
+    """A stand-in for a CUDA event: ``query()`` is whether it has passed."""
+
+    def __init__(self, passed):
+        self.passed = passed
+
+    def query(self):
+        return self.passed
+
+
+def test_device_proposals_fold_when_the_registry_is_read(monkeypatch):
+    """The kernel's count reaches the host as copies queued behind its
+    launches: each read of the registry adds what the landed copies show
+    since the last read, once, and takes no copy still in flight."""
+    tally = dgauss_cuda._Tally(torch.zeros((), dtype=torch.int64))
+    monkeypatch.setattr(dgauss_cuda, "_tallies", {torch.device("cpu"): tally})
+    before = _counter("sda_dp_noise_proposals_total")
+    in_flight = _Event(False)
+    tally.copies.extend([(_Event(True), torch.tensor(1376)), (in_flight, torch.tensor(1408))])
+    assert _counter("sda_dp_noise_proposals_total") == before + 1376
+    assert _counter("sda_dp_noise_proposals_total") == before + 1376
+    assert len(tally.copies) == 1
+    in_flight.passed = True
+    telemetry.snapshot()  # a read of its own: it folds the 32, and the next read adds nothing
+    assert _counter("sda_dp_noise_proposals_total") == before + 1408
+    assert not tally.copies
 
 
 def test_empty_and_scalar_draws():
     before = _counter("sda_dp_noise_proposals_total")
     assert dp.sample_discrete_gaussian(2.0, (0, 5), _gen()).shape == (0, 5)
-    assert _counter("sda_dp_noise_proposals_total") == before  # nothing to draw, no pass, no sync
+    assert _counter("sda_dp_noise_proposals_total") == before  # nothing to draw, no key, no launch
     assert dp.sample_discrete_gaussian(2.0, (), _gen()).shape == ()
 
 
 def test_acceptance_rate_and_budget():
     """The acceptance rate against a direct sum of the proposal's law at
-    small σ, its limit √(π/2)·e^-½ at large σ, and a budget that leaves
-    more than ten standard deviations of the accepted count to spare."""
+    small σ and its limit √(π/2)·e^-½ at large σ; the segment fill's share
+    of proposals kept is that rate times the sign test's (1 + e^(-1/t))/2."""
     for sigma in (0.5, 3.0, 40.0):
         t = math.floor(sigma) + 1
         y = np.arange(-200 * t, 200 * t + 1)
         pmf = (1 - math.exp(-1 / t)) / (1 + math.exp(-1 / t)) * np.exp(-np.abs(y) / t)
         direct = float(np.sum(pmf * np.exp(-((np.abs(y) - sigma**2 / t) ** 2) / (2 * sigma**2))))
         assert abs(dp.acceptance_rate(sigma) - direct) < 1e-12
+        assert dgauss_cuda.draw_rate(sigma) == (1 + math.exp(-1 / t)) / 2 * dp.acceptance_rate(sigma)
     limit = math.sqrt(math.pi / 2) * math.exp(-0.5)
     assert 0 < limit - dp.acceptance_rate(6654.23) < 1e-7
     assert dp.acceptance_rate(1e6) == dp.acceptance_rate(1e4)
-    n, a = 25 * 4_050_748, dp.acceptance_rate(6654.23)
-    m = dp.proposal_budget(6654.23, n)
-    assert (m * a - n) / math.sqrt(m * a * (1 - a)) > 10
-    assert m < 1.32 * n
+    assert 0.7600 < dgauss_cuda.draw_rate(6654.23) < 0.7602
