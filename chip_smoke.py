@@ -6,9 +6,12 @@
 K2 is ChaCha20's keystream kernel (``chacha20_kernel``) and K2x the fused
 seed expansion (``chacha20_kernel_expand``), both in ``csrc/chacha20.cu``:
 every mask and fold below (``expand_seeds_counts``, ``combine_masks_device``)
-launches K2x, and K2 runs only in the checks and timings. A line's
-``launches={"chacha20": n}`` counts that library's launches: K2x's on
-every path.
+launches K2x, and K2 runs only in the checks, in K2x's twin and in its one
+timing (phase 7). A line's ``launches={"chacha20": n}`` counts that
+library's launches: K2x's on every path. Every kernel's own time is taken
+by one timer (``_event_ms``: CUDA events around back-to-back launches of
+its C entry, ``_c_entry``), and so are its wrapper's and its plain
+version's, over their Python calls.
 
 Phases, each reported on its own line:
 
@@ -17,11 +20,8 @@ Phases, each reported on its own line:
 2. build: compiles every kernel from ``sda_tpu_torch/csrc`` (seconds, and
    ptxas' register/spill report) and, beside them, the native batch layer
    from ``sda_tpu_torch/native`` with the host's ``cc`` (its seconds and
-   ``cc --version``'s first line), counts the int8 tensor-core
-   instructions (``IMMA``) in K1's SASS with ``cuobjdump`` (none fails),
-   and K2's integer instructions per 64-byte block by family (``LOP3``,
-   ``SHF``, ``PRMT``, ``IADD3``, ``IMAD``, ``VIADD``) in its kernel's body,
-   on the ``build`` line: K2's operations bound is reckoned from them;
+   ``cc --version``'s first line), and counts the int8 tensor-core
+   instructions (``IMMA``) in K1's SASS with ``cuobjdump`` (none fails);
 3. parity: each kernel against its plain PyTorch version on the card, at the
    main path's full-width shape and at ragged shapes, bit-identical: K1 the
    limb share-and-reduce through both of its entries (the ``(C, nb, K)``
@@ -47,15 +47,14 @@ Phases, each reported on its own line:
    folded in numpy, 8 sampled rows against ``expand_seed``, and a profile
    of a few folds (K2x against the fold's torch sum);
 7. numbers: launch counts of each path's run, each kernel's own device time
-   per launch at the chunk shape (``torch.profiler``), its wrapper's and its
-   plain version's times (CUDA events), K2's time by CUDA events over
-   back-to-back launches of its C entry (``event_ms``, here and at every
-   later K2 ``numbers`` line), the bound, the paths' wall times; K2x bit
-   for bit against the plain expansion on the CPU and against its twin on
-   the card (K2's keystream, the compaction in torch) at the masked path's
-   chunk, against the twin at the reveal's fold, and its ``numbers`` at
-   both (as at every later K2x ``numbers`` line, which carries the path's
-   launches);
+   per launch at the chunk shape (``event_ms``), its wrapper's and its
+   plain version's times, the bound (K2's and K2x's operations by the
+   benchmark's count, ``sdabench.least_time``), the paths' wall times; K2x
+   bit for bit against the plain expansion on the CPU and against its twin
+   on the card (K2's keystream, the compaction in torch) at the masked
+   path's chunk, against the twin at the reveal's fold, and its
+   ``numbers`` at both (as at every later K2x ``numbers`` line, which
+   carries the path's launches);
 8. sum-first: bench.py's sum-first stream with its full check and finalize
    at its two presets, uncut: quick (100,000 x 10,000 in chunks of 2,000,
    31-bit p, int32 draws) and the north star (1,000,000 x 100,000 in
@@ -77,8 +76,8 @@ Phases, each reported on its own line:
    reveal from clerks 1..7, unmask (K2x), dequantize the mean and apply it
    to a global model; checked against host numpy and an independent field
    sum, once under ``torch_trace`` and once timed; then K1 and K2 against
-   their plain versions and timed at the round's shapes, K2x at its two, and a
-   ``telemetry`` line (the engine's step histogram after one
+   their plain versions at the round's shapes, K1 timed there, K2x at its
+   two, and a ``telemetry`` line (the engine's step histogram after one
    ``secure_sum``, the fabrics' collective bytes after phase 9);
 11. bench: ``python -m sda_tpu_torch.bench`` (bench.py's device plane) once
    per engine route, each a whole verified stream: the participant engine
@@ -108,8 +107,8 @@ Phases, each reported on its own line:
    (wires, field sum, mean, the server step bit for bit, the noise's
    spread, the privacy account) and by launch counts; a ``privacy`` line
    composing the DP rounds; K1 and K2 against their plain versions at the
-   rounds' shapes, K2x at the weighted round's, and their ``numbers``
-   there.
+   rounds' shapes, K2x at the weighted round's, and K1's and K2x's
+   ``numbers`` there.
 21. native (run here, before the rounds that ride it): the native batch
    layer's C (``native_phase``) byte for byte against its plain versions at
    fixed ephemeral keys: ``seal_participations`` at 1, 3 and 16 x 8 and
@@ -144,7 +143,7 @@ Phases, each reported on its own line:
    altered signature refused by the participant); a round at dim 1,000,
    below the device threshold, that launches no K2x; K2 and K2x against their
    plain versions at the reveal fold's shape on the round's seeds, and
-   their ``numbers`` there.
+   K2x's ``numbers`` there.
 15. trainer: ``FederatedTrainer.run_round`` once (``TRAINER_ROUNDS``) over
    ``DPFederatedAveraging`` at the CNN's width (phase 13's DP setting, the
    field and scheme from ``fitted_spec``) through the sealed round of
@@ -157,7 +156,7 @@ Phases, each reported on its own line:
    wires, the model against a numpy replay of FedAdam bit for bit, one K2x
    launch); a ``privacy`` line; a fresh trainer's restore, bit-equal to the
    live one (``trainer restore``); K2 and K2x against their plain versions at
-   the fold's shape and their ``numbers`` there.
+   the fold's shape and K2x's ``numbers`` there.
 16. analytics: the port's ``federated_training``, ``federated_analytics``
    and ``sketch_suite`` examples in process on CUDA clients (one
    ``example`` line each, return code 0), then one ``SecureHistogram`` and
@@ -280,22 +279,24 @@ Phases, each reported on its own line:
    6,654.23) and at a P = 1 wire of phase 13's DP setting (1,663,370 at
    σ_party 20,928): bit for bit against its plain twin on the card and, at
    the wire, on the CPU, the proposals it counts on the card equal to the
-   twin's; a ``numbers`` line each (CUDA events over back-to-back launches,
-   a whole ``sample_discrete_gaussian`` call, the twin, proposals a value,
-   the bound of its int64 writes).
+   twin's (``dgauss_cuda.proposals``); a ``numbers`` line each (CUDA events
+   over back-to-back launches of its C entry, a whole
+   ``sample_discrete_gaussian`` call, the twin, proposals a value, the
+   bound of its int64 writes).
 
 Then the ``{"kernels": [...]}`` line. Launches: K1's on the main path, the
 fabrics, the FedAvg round, the bench's K1 route in phases 11 and 23, the
 ladder's config 3 and the model rounds; K2's in this script's parity
-checks and timings and in K2x's twin (no path launches K2); K2x's on the
+checks, its wrapper's timing at the masked path's chunk and K2x's twin (no
+path launches K2); K2x's on the
 masked path, the fabrics, the FedAvg round, the model rounds, the sealed
 round, the trainer rounds, the REST round, the tier round, the ingest
 round, the flight round, the CNN-width soak round and the CNN-width churn
 round; the discrete Gaussian kernel's on the wires of the DP model rounds,
-the DP trainer and the examples' DP rounds, with phase 26's own in
-``check_launches``, its times and bound at the DP cell's chunk. K2x's
-times and bound are at the masked path's chunk. And last ``{"ok": true,
-"device": ...}``. Any failed phase raises, and the script exits nonzero.
+the DP trainer and the examples' DP rounds, with phase 26's own through
+its wrapper in ``check_launches``, its times and bound at the DP cell's
+chunk. K2x's times and bound are at the masked path's chunk. And last
+``{"ok": true, "device": ...}``. Any failed phase raises, and the script exits nonzero.
 """
 
 from __future__ import annotations
@@ -311,26 +312,14 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 from sda_tpu_torch import bench
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and int8 tensor-core ops/s
 from sda_tpu_torch.bench import HBM_BYTES_PER_S, INT8_OPS_PER_S, sumfirst_finalize, sumfirst_stream
-
-# 32-bit integer lanes of an H100 SM per clock: 4 schedulers issue one 32-lane
-# warp instruction each (128); logic ops (LOP3), funnel shifts (SHF), byte
-# permutes (PRMT) and IADD3 run only on the 64-lane INT pipe, IMAD (which
-# ptxas also uses for adds and moves, as IMAD.IADD and IMAD.MOV) on the
-# 64-lane FMA pipe. Rates are these times the SM count and the card's
-# maximum SM clock.
-ISSUE_LANES_PER_SM = 128
-INT_PIPE_LANES_PER_SM = 64
-# K2 runs one thread per 64-byte block, straight-line, so its per-block
-# instruction counts are read off its SASS in phase 2 (``sass_counts``) and
-# held here for ``_k2_bound``: the integer families counted, the INT-pipe
-# ones among them
-K2_SASS_FAMILIES = ("LOP3", "SHF", "PRMT", "IADD3", "IMAD", "VIADD")
-INT_PIPE_FAMILIES = ("LOP3", "SHF", "PRMT", "IADD3")
-K2_PER_BLOCK: dict = {}
+# the benchmark's yardstick: the work ChaCha20 must do (640 integer-pipe
+# operations a 64-byte block) at the H100's integer-pipe rate
+from sdabench.least_time import CHACHA_OPS_PER_BLOCK, chacha_s, int_pipe_ops_per_s
 
 PARTICIPANTS, DIM, CHUNK = 100_000, 10_000, 2_000
 K_SECRETS, THRESHOLD, CLERKS = 5, 2, 8
@@ -369,20 +358,61 @@ def _line(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def _time_ms(fn, iters: int, warmup: int = 1) -> float:
+def _event_ms(fn, iters: int, windows: int = 2, warmup: int = 2) -> list:
+    """``fn``'s time a call by CUDA events: ``warmup`` calls, then in each of
+    ``windows`` windows ``iters`` back-to-back calls between two recorded
+    events. Returns the ms a call of each window. Every kernel's own time
+    is taken over its C entry (``_c_entry``), and wrappers and plain
+    versions over their Python calls, all through this."""
     import torch
 
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    times = []
+    for _ in range(windows):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / iters)
+    return times
+
+
+def _c_entry(library: str, entry: str, *args):
+    """A call of ``library``'s C entry ``entry`` on the current stream with
+    ``args`` (a tensor passes its data pointer), raising on a nonzero
+    return: one launch of a kernel into buffers its caller allocated, with
+    no wrapper around it. These launches count nowhere."""
+    import torch
+
+    from sda_tpu_torch import kernels
+
+    launch = getattr(kernels.load(library), entry)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = launch(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
+        if rc:
+            raise RuntimeError(f"{entry} failed: cudaError {rc}")
+
+    return call
+
+
+def _k1_entry(secrets, rand, stacks, k: int):
+    """K1's C entry (``limb_share_sum_launch``) over int32 ``(C, d)`` secrets
+    and ``(C, nb, t)`` randomness into one output, as ``share_limb_sums_cuda``
+    launches it."""
+    import torch
+
+    from sda_tpu_torch.parallel.limb_cuda import packed_stacks
+
+    (C, d), (_, nb, t), (L, _, n) = secrets.shape, rand.shape, stacks.shape
+    out = torch.zeros((L, nb, n), dtype=torch.int32, device=secrets.device)
+    return _c_entry("limb_share_sum", "limb_share_sum_launch", secrets, rand if t else 0,
+                    packed_stacks(stacks), out, C, d, nb, k, t, L, n)
 
 
 PROFILE_CHUNKS = 5
@@ -432,83 +462,6 @@ def _profile_chunks(step, chunks: int, label: str = "main path", kernel: str | N
     return [e.key for e in kernels]
 
 
-def _profiled(fn, iters: int, kernel: str) -> tuple[int, float]:
-    """``torch.profiler`` over ``iters`` runs of ``fn``: the launches of the
-    kernel named ``kernel`` it saw and their own device time in ms."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    own = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
-    return sum(e.count for e in own), sum(e.self_device_time_total for e in own) / 1e3
-
-
-def _k2_event_ms(keys, n_blocks: int, iters: int = 50, windows: int = 2) -> list:
-    """K2's device time per launch at ``keys`` x ``n_blocks`` by CUDA events
-    around ``iters`` back-to-back launches of its C entry into one output
-    (no wrapper, no allocation between them), per window: the profiler's
-    records, which drop some kernels, are not needed for it. These launches
-    are timing only and count nowhere."""
-    import torch
-
-    from sda_tpu_torch import kernels
-    from sda_tpu_torch.ops.chacha_cuda import kernel_keys
-
-    packed = kernel_keys(keys)
-    P = packed.shape[0]
-    out = torch.empty((P, n_blocks, 16), dtype=torch.int32, device=packed.device)
-    launch = kernels.load("chacha20").chacha20_launch
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def run(count):
-        for _ in range(count):
-            if launch(packed.data_ptr(), 0, n_blocks, P, out.data_ptr(), stream):
-                raise RuntimeError("chacha20 launch failed")
-
-    run(3)  # warm
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        run(iters)
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop) / iters)
-    return times
-
-
-PROFILER_WINDOWS = 5
-
-
-def _kernel_ms(fn, iters: int, kernel: str) -> float:
-    """Device time per launch of the kernel named ``kernel`` while ``fn``
-    runs ``iters`` times: its own time by ``torch.profiler``, without the
-    host work of the wrapper that launches it. A window counts only if the
-    profiler saw all of its launches; on the H100 it drops some of a
-    window's kernel records now and then (0, 2, 16 or 19 of 20 seen while
-    all 20 ran, and once 14 of 20 in five windows in a row), so up to
-    ``PROFILER_WINDOWS`` windows are tried, each one after a short window
-    half as long as the one before (at least one launch), and each short
-    window is printed on a line."""
-    window = iters
-    for _ in range(PROFILER_WINDOWS):
-        count, total_ms = _profiled(fn, window, kernel)
-        if count == window:
-            return total_ms / count
-        _line("profiler window", kernel=kernel, saw=count, expected=window)
-        last, window = window, max(1, window // 2)
-    raise AssertionError(f"the profiler saw {count} launches of {kernel}, expected {last}, "
-                         f"in the last of {PROFILER_WINDOWS} windows")
-
-
 def _k1_bound(secrets, rand, stacks):
     """K1's work on these inputs and the least time it could take: both
     inputs read once, the stacks, the output written once; the real int8
@@ -521,23 +474,15 @@ def _k1_bound(secrets, rand, stacks):
     return moved, ops, moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
 
 
-def _k2_bound(seeds: int, n_blocks: int, sm_clocks_per_ms: float):
+def _chacha_bound(seeds: int, n_blocks: int):
     """K2's work for ``seeds`` x ``n_blocks`` keystream blocks and the least
-    time it could take: keys read once, blocks written once; the integer
-    instructions that K2's SASS issues per block (``K2_PER_BLOCK``, counted
-    in phase 2) at the card's maximum SM clock, the INT-pipe ones on 64
-    lanes per SM, the FMA pipe's IMADs on 64 and all of them on 128,
-    whichever takes longer. Returns (bytes, ops, int_pipe_ops, bytes_ms,
-    ops_ms)."""
-    if not K2_PER_BLOCK:
-        raise RuntimeError("K2's SASS has not been counted (phase 2)")
-    blocks = seeds * n_blocks
-    moved = seeds * 8 * 4 + blocks * 64
-    ops, int_ops = blocks * K2_PER_BLOCK["issue"], blocks * K2_PER_BLOCK["int_pipe"]
-    fma_ops = blocks * K2_PER_BLOCK["IMAD"]
-    clocks = max(int_ops / INT_PIPE_LANES_PER_SM, fma_ops / INT_PIPE_LANES_PER_SM,
-                 ops / ISSUE_LANES_PER_SM)
-    return moved, ops, int_ops, moved / HBM_BYTES_PER_S * 1e3, clocks / sm_clocks_per_ms
+    time it could take: keys read once, blocks written once; the benchmark's
+    count of ChaCha20's integer-pipe operations a block
+    (``least_time.CHACHA_OPS_PER_BLOCK``) at the H100's integer-pipe rate.
+    Returns (bytes, bytes_ms, ops_ms)."""
+    moved = seeds * 8 * 4 + seeds * n_blocks * 64
+    ops_s = seeds * n_blocks * CHACHA_OPS_PER_BLOCK / int_pipe_ops_per_s()
+    return moved, moved / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
 
 
 #: K2's launches through its wrapper in this script: its parity checks and
@@ -562,72 +507,26 @@ def _k2(keys, first_counter: int, n_blocks: int):
     return out
 
 
-def _expand_bound(seeds: int, n_blocks: int, dim: int, sm_clocks_per_ms: float):
-    """The fused expansion's least time for ``seeds`` x ``n_blocks`` blocks
-    into ``(seeds, dim)`` int64 masks: keys read, masks and counts written
-    once; K2's SASS operations a block (``_k2_bound``), with the zone test,
-    scan and ``mod m`` left out, so a lower bound. Returns (bytes, bytes_ms,
-    ops_ms)."""
-    ops_ms = _k2_bound(seeds, n_blocks, sm_clocks_per_ms)[4]
+def _expand_bound(seeds: int, dim: int):
+    """The fused expansion's least time for ``(seeds, dim)`` int64 masks:
+    keys read, masks and counts written once; the ChaCha20 that any
+    expansion of that many masks needs (``least_time.chacha_s``). Returns
+    (bytes, bytes_ms, ops_ms)."""
     moved = seeds * 8 * 4 + seeds * dim * 8 + seeds * 4
-    return moved, moved / HBM_BYTES_PER_S * 1e3, ops_ms
+    return moved, moved / HBM_BYTES_PER_S * 1e3, chacha_s(seeds, dim) * 1e3
 
 
-def _expand_event_ms(keys, dim: int, p: int, iters: int = 50, windows: int = 2) -> list:
-    """K2x's device time per launch at ``keys`` x ``dim`` by CUDA events
-    around ``iters`` back-to-back launches of its C entry into one output
-    (its scratch memset included; no wrapper, no allocation between them),
-    per window, as ``_k2_event_ms`` times K2. These launches are timing
-    only and count nowhere."""
-    import torch
-
-    from sda_tpu_torch import kernels
-    from sda_tpu_torch.ops import chacha_cuda
-    from sda_tpu_torch.ops.chacha import rand03_zone
-
-    packed = chacha_cuda.kernel_keys(keys)
-    P, n_blocks = packed.shape[0], chacha_cuda.window_blocks(dim, p)
-    tiles = P * -(-n_blocks // chacha_cuda._TILE_BLOCKS)
-    masks = torch.empty((P, dim), dtype=torch.int64, device=packed.device)
-    counts = torch.empty((P,), dtype=torch.int32, device=packed.device)
-    scratch = torch.empty((1 + tiles,), dtype=torch.int64, device=packed.device)
-    launch = kernels.load("chacha20").chacha20_expand_launch
-    stream = torch.cuda.current_stream().cuda_stream
-    zone, reciprocal = rand03_zone(p), chacha_cuda.barrett_reciprocal(p)
-
-    def run(count):
-        for _ in range(count):
-            if launch(packed.data_ptr(), n_blocks, P, dim, zone, p, reciprocal, scratch.data_ptr(),
-                      masks.data_ptr(), counts.data_ptr(), stream):
-                raise RuntimeError("chacha20 expand launch failed")
-
-    run(3)  # warm
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        run(iters)
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop) / iters)
-    return times
-
-
-def _expand_at(card: str, keys, dim: int, p: int, sm_clocks_per_ms: float, path: str,
-               launches: int, cpu: bool = False, **extra) -> tuple:
+def _expand_at(card: str, keys, dim: int, p: int, path: str, launches: int, cpu: bool = False,
+               **extra) -> tuple:
     """The fused expansion (``chacha20_kernel_expand``) at a path's shape, on
     ``keys``: ``parity`` lines against its plain twin on the card (K2's
     keystream, the compaction in torch) and, with ``cpu``, against the
     plain version on the CPU, ``counts`` exactly and each row's first
     ``min(count, dim)`` masks, which must be identical; then a ``numbers``
-    line: its own time by the profiler per launch it saw (it drops some
-    records at small shapes, so the count is printed, not asserted) and by
-    CUDA events over its C entry (``_expand_event_ms``), the wrapper's and
-    the twin's by CUDA events, its bound, and ``launches`` (the path's own,
-    with ``extra``). Returns (ms, plain_ms, bytes_ms, ops_ms): ms by the
-    profiler, by events where it saw no launch."""
+    line: its own time by CUDA events over its C entry (its scratch memset
+    included), the wrapper's and the twin's, its bound, and ``launches``
+    (the path's own, with ``extra``). Returns (ms, plain_ms, bytes_ms,
+    ops_ms)."""
     global EXPAND_MAX_ERR
     import torch
 
@@ -663,18 +562,19 @@ def _expand_at(card: str, keys, dim: int, p: int, sm_clocks_per_ms: float, path:
         del want_masks, want_counts, read
         if not same:
             raise AssertionError(f"chacha20_kernel_expand differs from {label} ({path})")
-    del masks, counts
-    seen, seen_ms = _profiled(fused, 20, "chacha20_kernel_expand")
-    event_ms = _expand_event_ms(keys, dim, p)
-    wrapper = _time_ms(fused, iters=10, warmup=2)
-    plain_ms = _time_ms(twin, iters=2)
-    moved, bytes_ms, ops_ms = _expand_bound(P, n_blocks, dim, sm_clocks_per_ms)
+    tiles = P * -(-n_blocks // chacha_cuda._TILE_BLOCKS)
+    scratch = torch.empty((1 + tiles,), dtype=torch.int64, device=keys.device)
+    event_ms = _event_ms(_c_entry(
+        "chacha20", "chacha20_expand_launch", chacha_cuda.kernel_keys(keys), n_blocks, P, dim,
+        rand03_zone(p), p, chacha_cuda.barrett_reciprocal(p), scratch, masks, counts), 50)
+    wrapper_ms = _event_ms(fused, 10, windows=1)
+    plain_ms = min(_event_ms(twin, 2, windows=1, warmup=1))
+    moved, bytes_ms, ops_ms = _expand_bound(P, dim)
     _line("numbers", kernel="chacha20_kernel_expand", path=path, shape=[P, n_blocks, dim],
-          profiler={"launches_seen": seen, "of": 20, "ms_per_seen": seen_ms / seen if seen else None},
-          event_ms=event_ms, wrapper_ms=wrapper, plain_ms=plain_ms, bytes=moved,
+          event_ms=event_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bytes=moved,
           bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
           launches=launches, **extra, card=card)
-    return seen_ms / seen if seen else min(event_ms), plain_ms, bytes_ms, ops_ms
+    return min(event_ms), plain_ms, bytes_ms, ops_ms
 
 
 def _sass(library) -> str:
@@ -688,39 +588,6 @@ def _sass(library) -> str:
 def _sass_count(library, opcode: str) -> int:
     """Instructions of ``opcode`` in a built library's SASS."""
     return sum(1 for text in _sass(library).splitlines() if f" {opcode}" in text)
-
-
-_SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
-
-
-def sass_counts(sass: str, function: str, families) -> tuple[dict, dict]:
-    """Instructions per opcode family (``IMAD`` covers ``IMAD.IADD``,
-    ``IMAD.MOV.U32``, ...) in the SASS of the one function whose name holds
-    ``function``: ``(body, after)``, the body from its entry to its last
-    unpredicated ``EXIT``, and what follows it (subroutines such as the
-    64-bit division's, reached by ``CALL`` only on a slow path)."""
-    code, inside = [], False  # (opcode, predicated) in address order
-    for text in sass.splitlines():
-        if "Function :" in text:
-            inside = function in text
-            continue
-        m = _SASS_LINE.match(text)
-        if inside and m:
-            instruction = m.group(2)
-            predicated = instruction.startswith("@")
-            if predicated:
-                instruction = instruction.split(None, 1)[1]
-            code.append((instruction.split()[0], predicated))
-    if not code:
-        raise ValueError(f"no SASS for a function named like {function!r}")
-    exits = [i for i, (op, predicated) in enumerate(code) if op == "EXIT" and not predicated]
-    last = exits[-1] if exits else len(code) - 1
-    body, after = dict.fromkeys(families, 0), dict.fromkeys(families, 0)
-    for i, (op, _) in enumerate(code):
-        family = op.split(".")[0]
-        if family in body:
-            (body if i <= last else after)[family] += 1
-    return body, after
 
 
 def sumfirst_phase(card: str, dev, seed: int) -> None:
@@ -1163,7 +1030,7 @@ def _tree_views(row, model: dict) -> dict:
                     for name, shape in leaves.items()} for layer, leaves in model.items()}
 
 
-def fedavg_phase(card: str, dev, seed: int, main_scheme, sm_clocks_per_ms: float):
+def fedavg_phase(card: str, dev, seed: int, main_scheme):
     """Phase 10: a ChaCha-masked FedAvg round of ``FEDAVG_PARTICIPANTS``
     updates of the ``FEDAVG_MODEL`` CNN (``fedavg_round``), once under
     ``torch_trace`` and once timed with the kernels' launch counts read;
@@ -1172,7 +1039,7 @@ def fedavg_phase(card: str, dev, seed: int, main_scheme, sm_clocks_per_ms: float
     quantization bound of the host mean of the clipped updates, (d)
     ``fedavg_apply`` against a host sum, (e) the launch counts; then K1 and
     K2 against their plain versions at every shape the round gave them,
-    their times at those shapes, the fused expansion (``_expand_at``) at the
+    K1's times at its shape, the fused expansion (``_expand_at``) at the
     masking chunk and a reveal fold, and a ``telemetry`` line. Returns
     ``(k1 launches, chacha20 launches, k1 max_abs_err, k2 max_abs_err)``."""
     import math
@@ -1296,38 +1163,23 @@ def fedavg_phase(card: str, dev, seed: int, main_scheme, sm_clocks_per_ms: float
         if not same:
             raise AssertionError(f"chacha20 differs from its plain version (fedavg {label})")
 
-    # each kernel's own time at the round's shapes, its plain version's, its bound
-    # (K2's own time by the profiler, which saw only half of its launches
-    # at this shape in one run, is printed beside its wrapper's by CUDA
-    # events, not asserted)
+    # K1's own time at the round's shape over its C entry, its wrapper's,
+    # its plain version's, its bound
     def k1():
         return share_limb_sums_cuda(secrets, rand, stacks, plan.input_size)
 
-    k1_ms = [_kernel_ms(k1, 10, "limb_share_sum") for _ in range(2)]
-    k1_wrapper = _time_ms(k1, iters=10, warmup=2)
-    k1_plain = _time_ms(lambda: share_limb_sums_torch(secrets, rand, stacks, plan.input_size), iters=2)
+    k1_ms = _event_ms(_k1_entry(secrets, rand, stacks, plan.input_size), 10)
+    k1_wrapper = _event_ms(k1, 10, windows=1)
+    k1_plain = _event_ms(lambda: share_limb_sums_torch(secrets, rand, stacks, plan.input_size), 2,
+                         windows=1, warmup=1)
     moved, ops, bytes_ms, ops_ms = _k1_bound(secrets, rand, stacks)
     _line("numbers", kernel="limb_share_sum", path="fedavg round", shape=[list(secrets.shape), list(rand.shape)],
-          kernel_ms=k1_ms, wrapper_ms=k1_wrapper, plain_ms=k1_plain, bytes=moved, int8_ops=ops,
+          event_ms=k1_ms, wrapper_ms=k1_wrapper, plain_ms=k1_plain, bytes=moved, int8_ops=ops,
           bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms,
           launches=launches["limb_share_sum"], card=card)
     keys = seed_tensor(seeds[:FEDAVG_CHUNK], dev)
-
-    def k2():
-        return _k2(keys, 0, n_blocks)
-
-    k2_wrapper = [_time_ms(k2, iters=10, warmup=2) for _ in range(2)]
-    seen, seen_ms = _profiled(k2, 10, "chacha20")
-    k2_plain = _time_ms(lambda: chacha_blocks_torch(keys, 0, n_blocks), iters=2)
-    moved, ops, int_ops, bytes_ms, ops_ms = _k2_bound(FEDAVG_CHUNK, n_blocks, sm_clocks_per_ms)
-    _line("numbers", kernel="chacha20", path="fedavg round", shape=[FEDAVG_CHUNK, n_blocks, 16],
-          event_ms=_k2_event_ms(keys, n_blocks), wrapper_ms=k2_wrapper,
-          profiler={"launches_seen": seen, "of": 10,
-                    "ms_per_seen": seen_ms / seen if seen else None},
-          plain_ms=k2_plain, bytes=moved, int32_ops=ops, int_pipe_ops=int_ops,
-          bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, card=card)
-    _expand_at(card, keys, dim, p, sm_clocks_per_ms, "fedavg round masking chunk", launches["chacha20"])
-    _expand_at(card, seed_tensor(seeds[:fold], dev), dim, p, sm_clocks_per_ms, "fedavg round reveal fold",
+    _expand_at(card, keys, dim, p, "fedavg round masking chunk", launches["chacha20"])
+    _expand_at(card, seed_tensor(seeds[:fold], dev), dim, p, "fedavg round reveal fold",
                launches["chacha20"])
     del secrets, rand
 
@@ -1467,7 +1319,7 @@ def _centered(v, p: int):
     return np.where(v > p // 2, v - p, v)
 
 
-def model_rounds_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+def model_rounds_phase(card: str, dev, seed: int):
     """Phase 13: MODEL_ROUNDS ``model_round``s of ``MODEL_COHORT`` clients of
     the ``FEDAVG_MODEL`` CNN for each of two drivers, the kernels' launches
     counted per round: ``WeightedFederatedAveraging`` with sample-count
@@ -1482,8 +1334,8 @@ def model_rounds_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     the server step against the check's own numpy statement of the
     optimizer, bit-equal, (e) the launch counts. Then the composed privacy
     of the DP rounds, K1 and K2 against their plain versions at every shape
-    the rounds gave them, their times there, and the fused expansion
-    (``_expand_at``) at the weighted round's. Returns ``(k1 launches,
+    the rounds gave them, K1's times at the weighted round's, and the fused
+    expansion (``_expand_at``) there. Returns ``(k1 launches,
     chacha20 launches, dgauss_kernel launches, k1 max_abs_err, k2
     max_abs_err)``."""
     import math
@@ -1656,41 +1508,26 @@ def model_rounds_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
         if not same:
             raise AssertionError(f"chacha20 differs from its plain version ({label} round)")
         if label == "weighted":
-            timing = (secrets, rand, stacks, plan.input_size, keys, n_blocks, width, p)
+            timing = (secrets, rand, stacks, plan.input_size, keys, width, p)
         else:
             del secrets, rand
 
-    # each kernel's own time at the weighted round's shapes, its plain
-    # version's, its bound
-    secrets, rand, stacks, k, keys, n_blocks, width, p = timing
+    # K1's own time at the weighted round's shape over its C entry, its
+    # wrapper's, its plain version's, its bound
+    secrets, rand, stacks, k, keys, width, p = timing
 
     def k1():
         return share_limb_sums_cuda(secrets, rand, stacks, k)
 
-    k1_plain = _time_ms(lambda: share_limb_sums_torch(secrets, rand, stacks, k), iters=2)
-    k1_ms = [_kernel_ms(k1, 10, "limb_share_sum") for _ in range(2)]
-    k1_wrapper = _time_ms(k1, iters=10, warmup=2)
+    k1_plain = _event_ms(lambda: share_limb_sums_torch(secrets, rand, stacks, k), 2, windows=1, warmup=1)
+    k1_ms = _event_ms(_k1_entry(secrets, rand, stacks, k), 10)
+    k1_wrapper = _event_ms(k1, 10, windows=1)
     moved, ops, bytes_ms, ops_ms = _k1_bound(secrets, rand, stacks)
     _line("numbers", kernel="limb_share_sum", path="model rounds", shape=[list(secrets.shape), list(rand.shape)],
-          kernel_ms=k1_ms, wrapper_ms=k1_wrapper, plain_ms=k1_plain, bytes=moved, int8_ops=ops,
+          event_ms=k1_ms, wrapper_ms=k1_wrapper, plain_ms=k1_plain, bytes=moved, int8_ops=ops,
           bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
           launches=k1_total, card=card)
-
-    def k2():
-        return _k2(keys, 0, n_blocks)
-
-    k2_plain = _time_ms(lambda: chacha_blocks_torch(keys, 0, n_blocks), iters=2)
-    k2_wrapper = [_time_ms(k2, iters=10, warmup=2) for _ in range(2)]
-    seen, seen_ms = _profiled(k2, 10, "chacha20")
-    moved, ops, int_ops, bytes_ms, ops_ms = _k2_bound(P, n_blocks, sm_clocks_per_ms)
-    _line("numbers", kernel="chacha20", path="model rounds", shape=[P, n_blocks, 16],
-          event_ms=_k2_event_ms(keys, n_blocks), wrapper_ms=k2_wrapper,
-          profiler={"launches_seen": seen, "of": 10,
-                    "ms_per_seen": seen_ms / seen if seen else None},
-          plain_ms=k2_plain, bytes=moved, int32_ops=ops, int_pipe_ops=int_ops,
-          bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
-          card=card)
-    _expand_at(card, keys, width, p, sm_clocks_per_ms, "model rounds masking and reveal fold", k2_total)
+    _expand_at(card, keys, width, p, "model rounds masking and reveal fold", k2_total)
     return k1_total, k2_total, dgauss_total, k1_err, k2_err
 
 
@@ -1711,15 +1548,16 @@ def dgauss_phase(card: str, dev, seed: int) -> tuple:
     ``csrc/dgauss.cu``) at each ``DGAUSS_CASES`` shape from a key drawn on
     a CUDA generator: bit for bit against its plain twin
     (``dgauss_cuda.dgauss_plain``) on the card from the same key and, at
-    the wire, on the CPU, with the proposals it counted on the card equal
-    to the twin's (a ``parity`` line each); then a ``numbers`` line: the
-    kernel's time per launch by CUDA events over ``DGAUSS_ITERS``
-    back-to-back launches of its wrapper (``dgauss_cuda.dgauss_cuda``, two
-    windows), a whole ``sample_discrete_gaussian`` call's, the twin's on the
-    card, proposals over values, and its bound: the int64 values written
-    once at the HBM's rate (no input is read). Returns ``(max_abs_err, ms,
-    plain_ms, bound_ms, launches)``, the middle three at the DP cell's
-    chunk, the last this phase's own launches."""
+    the wire, on the CPU, with the proposals it counted on the card
+    (``dgauss_cuda.proposals``) equal to the twin's (a ``parity`` line
+    each); then a ``numbers`` line: the kernel's time per launch by CUDA
+    events over ``DGAUSS_ITERS`` back-to-back launches of its C entry
+    (``dgauss_launch``, two windows), a whole ``sample_discrete_gaussian``
+    call's, the twin's on the card, proposals over values, and its bound:
+    the int64 values written once at the HBM's rate (no input is read).
+    Returns ``(max_abs_err, ms, plain_ms, bound_ms, launches)``, the middle
+    three at the DP cell's chunk, the last this phase's launches through
+    the wrapper."""
     import math
 
     import torch
@@ -1735,10 +1573,9 @@ def dgauss_phase(card: str, dev, seed: int) -> tuple:
                          expected_participants=parties).sigma_party_field(1 << 16, dim)
         n = rows * dim
         key = dgauss_cuda.draw_key(gen)
-        acc = dgauss_cuda._accumulator(key.device)
-        before = int(acc)
+        before = dgauss_cuda.proposals(key.device)
         got = dgauss_cuda.dgauss_cuda(sigma, n, key)
-        drawn = int(acc) - before
+        drawn = dgauss_cuda.proposals(key.device) - before
         twins = [("its twin on the card", key)] + ([("its twin on the CPU", key.cpu())] if rows == 1 else [])
         for against, twin_key in twins:
             want, want_drawn = dgauss_cuda.dgauss_plain(sigma, n, twin_key)
@@ -1751,25 +1588,13 @@ def dgauss_phase(card: str, dev, seed: int) -> tuple:
             del want
             if not same:
                 raise AssertionError(f"dgauss_kernel differs from {against} ({label})")
+        # the C entry into the same output, its proposals into a scratch count
+        event_ms = _event_ms(_c_entry("dgauss", "dgauss_launch", key, n, *dgauss_cuda.constants(sigma), got,
+                                      torch.zeros((), dtype=torch.int64, device=dev)), DGAUSS_ITERS)
         del got
-
-        def kernel(iters):
-            for _ in range(iters):
-                dgauss_cuda.dgauss_cuda(sigma, n, key)
-
-        event_ms = []
-        for _ in range(2):
-            kernel(2)
-            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            kernel(DGAUSS_ITERS)
-            stop.record()
-            torch.cuda.synchronize()
-            event_ms.append(start.elapsed_time(stop) / DGAUSS_ITERS)
-        sample_ms = _time_ms(lambda: sample_discrete_gaussian(sigma, (rows, dim), gen), iters=DGAUSS_ITERS,
-                             warmup=2)
-        plain_ms = _time_ms(lambda: dgauss_cuda.dgauss_plain(sigma, n, key), iters=1)
+        sample_ms = _event_ms(lambda: sample_discrete_gaussian(sigma, (rows, dim), gen), DGAUSS_ITERS,
+                              windows=1)
+        plain_ms = min(_event_ms(lambda: dgauss_cuda.dgauss_plain(sigma, n, key), 1, windows=1, warmup=1))
         moved = n * 8
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
         _line("numbers", kernel="dgauss_kernel", path=label, shape=[rows, dim], sigma=sigma,
@@ -1959,15 +1784,13 @@ def drivers_phase(card: str, dev, seed: int) -> tuple[int, int]:
     def k1_plain():
         return share_limb_sums_torch(secrets, rand, stacks, k)
 
-    plain_a = _time_ms(k1_plain, iters=2)
-    kernel_a = _kernel_ms(k1_run, 20, "limb_share_sum")
-    kernel_b = _kernel_ms(k1_run, 20, "limb_share_sum")
-    plain_b = _time_ms(k1_plain, iters=2)
-    wrapper = _time_ms(k1_run, iters=20, warmup=3)
+    plain_ms = _event_ms(k1_plain, 2, warmup=1)
+    kernel_ms = _event_ms(_k1_entry(secrets, rand, stacks, k), 20)
+    wrapper = _event_ms(k1_run, 20, windows=1, warmup=3)
     moved, ops, bytes_ms, ops_ms = _k1_bound(secrets, rand, stacks)
     _line("numbers", kernel="limb_share_sum", path="ladder config 3",
-          shape=[list(secrets.shape), list(rand.shape)], kernel_ms=[kernel_a, kernel_b],
-          wrapper_ms=wrapper, plain_ms=[plain_a, plain_b], bytes=moved, int8_ops=ops,
+          shape=[list(secrets.shape), list(rand.shape)], event_ms=kernel_ms,
+          wrapper_ms=wrapper, plain_ms=plain_ms, bytes=moved, int8_ops=ops,
           bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
           launches=k1, card=card)
     del secrets, rand
@@ -2307,6 +2130,63 @@ class _NativeTally:
                 "only_c_paths": bool(grew) and {path for _, path in grew} <= C_PATHS}
 
 
+class _Fold(NamedTuple):
+    """One ``combine_masks_device`` call that ``_Folds`` recorded."""
+
+    events: tuple  # CUDA events recorded before and after it
+    seeds: "np.ndarray"
+    thread: threading.Thread
+
+    def seconds(self) -> float:
+        return self.events[0].elapsed_time(self.events[1]) / 1e3
+
+
+class _Folds(list):
+    """The mask folds of this process while installed:
+    ``masking.combine_masks_device`` swapped for a call that appends a
+    ``_Fold`` (CUDA events around it, its seeds, its thread) to this list.
+    ``remove``, or any exit from a ``with`` block, puts the original back."""
+
+    _real = None
+
+    def install(self) -> None:
+        import numpy as np
+        import torch
+
+        from sda_tpu_torch.crypto import masking
+
+        real = self._real = masking.combine_masks_device
+
+        def recorded(seeds, *args, **kwargs):
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            events[0].record()
+            out = real(seeds, *args, **kwargs)
+            events[1].record()
+            self.append(_Fold(events, np.asarray(seeds), threading.current_thread()))
+            return out
+
+        masking.combine_masks_device = recorded
+
+    def remove(self) -> None:
+        from sda_tpu_torch.crypto import masking
+
+        if self._real is not None:
+            masking.combine_masks_device, self._real = self._real, None
+
+    def __enter__(self):
+        self.install()
+        return self
+
+    def __exit__(self, *exc):
+        self.remove()
+
+    def seconds(self) -> list:
+        return [fold.seconds() for fold in self]
+
+    def rows(self) -> list:
+        return [int(fold.seeds.shape[0]) for fold in self]
+
+
 def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = False,
                  service_for=None, batched: bool = False) -> dict:
     """One ChaCha-masked aggregation of ``values`` (field vectors) through
@@ -2327,11 +2207,10 @@ def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = Fals
     rates of the native layer (``_NativeTally``) and the checks: always
     the tally's three (every seal and open counted on a C path), with
     ``with_checks`` the three refusals too."""
-    import numpy as np
     import torch
 
     from sda_tpu_torch.client import SdaClient
-    from sda_tpu_torch.crypto import Keystore, masking, sodium
+    from sda_tpu_torch.crypto import Keystore, sodium
     from sda_tpu_torch.protocol import (
         B64,
         Aggregation,
@@ -2350,16 +2229,7 @@ def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = Fals
     from sda_tpu_torch.server import new_mem_server
 
     dim, p = len(values[0]), scheme.prime_modulus
-    seconds, folds = {}, []
-    real_combine = masking.combine_masks_device
-
-    def timed_combine(seeds, *args, **kwargs):
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        events[0].record()
-        out = real_combine(seeds, *args, **kwargs)
-        events[1].record()
-        folds.append((events, np.asarray(seeds)))
-        return out
+    seconds, folds = {}, _Folds()
 
     def stage(name, fn):
         t0 = time.perf_counter()
@@ -2414,14 +2284,11 @@ def sealed_round(dev, root: Path, values: list, scheme, with_checks: bool = Fals
         stage("snapshot_s", lambda: recipient.end_aggregation(aggregation.id))
         job = clerks[0].service.get_clerking_job(clerks[0].agent, clerks[0].agent.id)
         stage("clerking_s", lambda: [member.run_chores(-1) for member in [recipient] + clerks])
-        masking.combine_masks_device = timed_combine
-        try:
+        with folds:
             out = stage("reveal_s", lambda: recipient.reveal_aggregation(aggregation.id))
-        finally:
-            masking.combine_masks_device = real_combine
     seconds["wall_s"] = time.perf_counter() - t_wall
     torch.cuda.synchronize()
-    seconds["mask_combine_s"] = sum(a.elapsed_time(b) for (a, b), _ in folds) / 1e3 if folds else None
+    seconds["mask_combine_s"] = sum(folds.seconds()) if folds else None
     checks = tally.checks()
     if with_checks:
         # a clerking job with one ciphertext byte flipped: the clerk's open
@@ -2493,15 +2360,12 @@ def _sealed_updates(dev, rng, count: int = SEALED_COHORT):
     return scheme, values
 
 
-def _k2_at_fold(card: str, dev, folds, dim: int, p: int, sm_clocks_per_ms: float, launches: int,
-                path: str, **extra) -> int:
+def _k2_at_fold(card: str, dev, folds, dim: int, p: int, launches: int, path: str, **extra) -> int:
     """K2 and the fused expansion at a reveal fold's shape, on the round's
-    own seeds (``folds`` as ``sealed_round`` returns them): K2's ``parity``
-    line against its plain version, which must be identical, and its
-    ``numbers`` line (wrapper by CUDA events, own time by the profiler,
-    plain, bound); then ``_expand_at``, whose ``numbers`` line carries the
-    path's ``launches`` and ``extra`` fields. Returns K2's max_abs_err
-    there."""
+    own seeds (the ``_Fold``s of ``folds``): K2's ``parity`` line against its
+    plain version, which must be identical; then ``_expand_at``, whose
+    ``numbers`` line carries the path's ``launches`` and ``extra`` fields.
+    Returns K2's max_abs_err there."""
     import numpy as np
     import torch
 
@@ -2509,7 +2373,7 @@ def _k2_at_fold(card: str, dev, folds, dim: int, p: int, sm_clocks_per_ms: float
     from sda_tpu_torch.ops.chacha_cuda import seed_tensor, window_blocks
 
     n_blocks = window_blocks(dim, p)
-    keys = seed_tensor(np.concatenate([seeds for _, seeds in folds]), dev)
+    keys = seed_tensor(np.concatenate([fold.seeds for fold in folds]), dev)
     got = _k2(keys, 0, n_blocks)
     want_k2 = chacha_blocks_torch(keys, 0, n_blocks)
     k2_err = int((got.to(torch.int64) - want_k2.to(torch.int64)).abs().max())
@@ -2519,26 +2383,11 @@ def _k2_at_fold(card: str, dev, folds, dim: int, p: int, sm_clocks_per_ms: float
     del got, want_k2
     if not same:
         raise AssertionError(f"chacha20 differs from its plain version ({path} reveal fold)")
-
-    def k2():
-        return _k2(keys, 0, n_blocks)
-
-    k2_plain = _time_ms(lambda: chacha_blocks_torch(keys, 0, n_blocks), iters=2)
-    k2_wrapper = [_time_ms(k2, iters=10, warmup=2) for _ in range(2)]
-    seen, seen_ms = _profiled(k2, 10, "chacha20")
-    moved, ops, int_ops, bytes_ms, ops_ms = _k2_bound(keys.shape[0], n_blocks, sm_clocks_per_ms)
-    _line("numbers", kernel="chacha20", path=path, shape=[keys.shape[0], n_blocks, 16],
-          event_ms=_k2_event_ms(keys, n_blocks), wrapper_ms=k2_wrapper,
-          profiler={"launches_seen": seen, "of": 10,
-                    "ms_per_seen": seen_ms / seen if seen else None},
-          plain_ms=k2_plain, bytes=moved, int32_ops=ops, int_pipe_ops=int_ops,
-          bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=None,
-          card=card)
-    _expand_at(card, keys, dim, p, sm_clocks_per_ms, f"{path} reveal fold", launches, **extra)
+    _expand_at(card, keys, dim, p, f"{path} reveal fold", launches, **extra)
     return k2_err
 
 
-def sealed_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+def sealed_round_phase(card: str, dev, seed: int):
     """Phase 14: ``sealed_round`` of ``SEALED_COHORT`` float updates of the
     ``FEDAVG_MODEL`` CNN, each quantized by ``quantize_update`` under
     ``QuantizationSpec.fitted`` (packed Shamir k=5, t=2, n=8), over 8 clerks;
@@ -2548,7 +2397,7 @@ def sealed_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     ciphertext byte refused by the clerk's open, a participation under
     another agent refused by the server, a key with an altered signature
     refused by the participant. Then K2 and K2x against their plain versions at the
-    fold's shape on the round's own seeds, their times there, and a round at
+    fold's shape on the round's own seeds, K2x's times there, and a round at
     ``SEALED_SMALL_DIM`` below the threshold that must launch no K2x.
     Returns ``(chacha20 launches, k2 max_abs_err)``."""
     import tempfile
@@ -2596,7 +2445,7 @@ def sealed_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
                                  f"{chacha_cuda.launches} chacha20 launches (expected 0), "
                                  f"checks {small_out['checks']}")
 
-    k2_err = _k2_at_fold(card, dev, out["folds"], dim, p, sm_clocks_per_ms, launches,
+    k2_err = _k2_at_fold(card, dev, out["folds"], dim, p, launches,
                          "sealed round")
     return launches, k2_err
 
@@ -2642,7 +2491,7 @@ def _timed(obj, name: str, seconds: dict, key: str) -> None:
     setattr(obj, name, call)
 
 
-def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+def trainer_phase(card: str, dev, seed: int):
     """Phase 15: ``FederatedTrainer.run_round`` ``TRAINER_ROUNDS`` times over a
     ``DPFederatedAveraging`` driver of the ``FEDAVG_MODEL`` CNN (L2 clip
     1.0, noise multiplier 1.0, δ = 1e-6, the field and packed-Shamir scheme
@@ -2665,7 +2514,7 @@ def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     import torch
 
     from sda_tpu_torch.client import SdaClient
-    from sda_tpu_torch.crypto import Keystore, masking
+    from sda_tpu_torch.crypto import Keystore
     from sda_tpu_torch.models import DPConfig, DPFederatedAveraging, FedAdam, FederatedTrainer
     from sda_tpu_torch.ops import chacha_cuda, dgauss_cuda
     from sda_tpu_torch.server import new_mem_server
@@ -2691,16 +2540,7 @@ def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
                                       for name, shape in leaves.items()}
                               for layer, leaves in FEDAVG_MODEL.items()}
 
-    k2_total, dgauss_total, folds = 0, 0, []
-    real_combine = masking.combine_masks_device
-
-    def timed_combine(seeds, *args, **kwargs):
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        events[0].record()
-        out = real_combine(seeds, *args, **kwargs)
-        events[1].record()
-        folds.append((events, np.asarray(seeds)))
-        return out
+    k2_total, dgauss_total, folds = 0, 0, _Folds()
 
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
@@ -2743,8 +2583,7 @@ def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
         _timed(trainer, "save", seconds, "save_s")
         host_adam = _HostFedAdam()
         host_global = _sorted_flat(global0)
-        masking.combine_masks_device = timed_combine
-        try:
+        with folds:
             for round_index in range(TRAINER_ROUNDS):
                 wires.clear()
                 revealed.clear()
@@ -2759,8 +2598,7 @@ def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
                 seconds["wall_s"] = time.perf_counter() - t0
                 launches, recoveries = chacha_cuda.launches, chacha_cuda.slack_recoveries
                 sampled = dgauss_cuda.launches
-                seconds["mask_combine_s"] = sum(a.elapsed_time(b) for (a, b), _ in folds) / 1e3
-                round_seeds = np.concatenate([s for _, s in folds]) if folds else None
+                seconds["mask_combine_s"] = sum(folds.seconds())
                 field_sum = revealed[0]
                 sum_ok = len(wires) == P and bool(np.array_equal(field_sum, np.stack(wires).sum(axis=0) % p))
                 mean = _centered(field_sum, p).astype(np.float64) / scale / P
@@ -2784,8 +2622,6 @@ def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
                     raise AssertionError(f"trainer round {round_index}: a check failed: {checks}")
                 k2_total += launches
                 dgauss_total += sampled
-        finally:
-            masking.combine_masks_device = real_combine
         composed = trainer.cumulative_privacy()
         _line("privacy", driver="trainer", rounds=composed.rounds, epsilon=composed.epsilon,
               rho=composed.rho, delta=composed.delta)
@@ -2816,8 +2652,7 @@ def trainer_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
             raise AssertionError(f"trainer restore: a check failed: {checks}")
 
     # K2 and the fused expansion at the rounds' fold shape, on the last round's seeds
-    k2_err = _k2_at_fold(card, dev, [(None, round_seeds)], dim, p, sm_clocks_per_ms, k2_total,
-                         "trainer round")
+    k2_err = _k2_at_fold(card, dev, folds, dim, p, k2_total, "trainer round")
     return k2_total, dgauss_total, k2_err
 
 
@@ -3061,7 +2896,7 @@ def _cli_walkthrough(url: str, root: Path) -> str:
     return run("recipient", "aggregations", "reveal", agg).strip()
 
 
-def rest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+def rest_round_phase(card: str, dev, seed: int):
     """Phase 17: phase 14's round (``sealed_round`` with its three checks)
     over loopback HTTP to an ``sdad --sqlite`` subprocess, each member on its
     own ``SdaHttpClient``. Held to: the reveal against an independent numpy
@@ -3137,7 +2972,7 @@ def rest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
             raise AssertionError(f"cli walkthrough: {result!r}, {chacha_cuda.launches} chacha20 "
                                  f"launches (expected {CLI_RESULT!r}, 0)")
 
-    k2_err = _k2_at_fold(card, dev, out["folds"], dim, p, sm_clocks_per_ms, launches, "rest round")
+    k2_err = _k2_at_fold(card, dev, out["folds"], dim, p, launches, "rest round")
     return launches, k2_err
 
 
@@ -3180,7 +3015,7 @@ def _tier_agent_ids(rng, aggregation, tiers_mod, agent_id_cls, count: int, at_le
             return ids
 
 
-def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+def tier_round_phase(card: str, dev, seed: int):
     """Phase 18: the tiered round over two sharded, replicated frontends.
     Participants route to their leaves by hashing; ``run_tier_round``
     closes the leaves (each promoter folds its sub-cohort's masks on K2x and
@@ -3204,7 +3039,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
 
     from sda_tpu_torch import telemetry
     from sda_tpu_torch.client import SdaClient, run_tier_round, setup_tier_round
-    from sda_tpu_torch.crypto import Keystore, masking, sharing
+    from sda_tpu_torch.crypto import Keystore, sharing
     from sda_tpu_torch.crypto.masking import ChaChaMasker
     from sda_tpu_torch.ops import chacha_cuda
     from sda_tpu_torch.protocol import (
@@ -3228,17 +3063,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
     at_least = -(-threshold // dim)  # rows whose fold reaches the device threshold
     traffic = _Traffic()
 
-    folds = []
-    real_combine = masking.combine_masks_device
-
-    def timed_combine(seeds, *args, **kwargs):
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        events[0].record()
-        out = real_combine(seeds, *args, **kwargs)
-        events[1].record()
-        folds.append((events, np.asarray(seeds)))
-        return out
-
+    folds = _Folds()
     reconstructions = []
     real_reconstruct = sharing.PackedShamirReconstructor.reconstruct
 
@@ -3290,7 +3115,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
             chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
             telemetry.reset()
             traffic.install()
-            masking.combine_masks_device = timed_combine
+            folds.install()
             sharing.PackedShamirReconstructor.reconstruct = counted_reconstruct
             t_wall = time.perf_counter()
             t0 = time.perf_counter()
@@ -3355,7 +3180,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
             failed = False
         finally:
             traffic.remove()
-            masking.combine_masks_device = real_combine
+            folds.remove()
             sharing.PackedShamirReconstructor.reconstruct = real_reconstruct
             if marker is not None and marker.exists():
                 marker.unlink()
@@ -3380,7 +3205,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
              for name in ("tier.close", "tier.promote", "tier.root_close", "tier.root_reveal")}
     reshare = [h for h in telemetry.snapshot(include_spans=0)["histograms"]
                if h["name"] == "sda_tier_reshare_seconds"]
-    fold_rows = [int(seeds.shape[0]) for _, seeds in folds]
+    fold_rows = folds.rows()
     leaf_sizes = sorted(sum(1 for i in ids if tiers_mod.leaf_aggregation_id(aggregation, i) == tn.aggregation.id)
                         for tn in tround.leaves())
     root_rows = TIER_SUB_COHORTS * (scheme.share_count + 1)
@@ -3411,7 +3236,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
           reshare_s=sum(h["sum"] for h in reshare), reshares=sum(h["count"] for h in reshare),
           root_clerking_s=spans["tier.root_close"],
           reveal_s=spans["tier.root_reveal"] - seconds["drain_s"], drain_s=seconds["drain_s"],
-          mask_combine_s=[a.elapsed_time(b) / 1e3 for (a, b), _ in folds], fold_rows=fold_rows,
+          mask_combine_s=folds.seconds(), fold_rows=fold_rows,
           wall_s=seconds["wall_s"], **traffic.counts, served_requests=served, metrics_polls=polls,
           wire=wire.mode(), hints_hinted=hinted.get("while_down"), hints_drained=drained,
           hints_abandoned=abandoned, abandoned_log=abandoned_log,
@@ -3422,8 +3247,7 @@ def tier_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
         raise AssertionError(f"tier round: a check failed: {checks}")
     k2_err = 0
     for ix, fold in enumerate(folds):
-        k2_err = max(k2_err, _k2_at_fold(card, dev, [fold], dim, p, sm_clocks_per_ms, launches,
-                                         f"tier round fold {ix}"))
+        k2_err = max(k2_err, _k2_at_fold(card, dev, [fold], dim, p, launches, f"tier round fold {ix}"))
     return launches, k2_err
 
 
@@ -3462,7 +3286,7 @@ def _histogram_sum(telemetry, name: str, **labels) -> float:
                if h["name"] == name and all(h["labels"].get(k) == v for k, v in labels.items()))
 
 
-def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: str, root: Path,
+def ingest_round_phase(card: str, dev, seed: int, url: str, root: Path,
                        traffic: "_Traffic"):
     """Phase 19: ``INGEST_PHONES`` quantized CNN updates through
     ``ingest_cohort(..., window=INGEST_WINDOW)`` on ``INGEST_TRACE`` against
@@ -3489,7 +3313,7 @@ def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: 
     from sda_tpu_torch import telemetry
     from sda_tpu_torch.client import SdaClient, ingest_cohort, run_committee
     from sda_tpu_torch.client.ingest import arrival_slack_s, plan_arrivals
-    from sda_tpu_torch.crypto import Keystore, masking
+    from sda_tpu_torch.crypto import Keystore
     from sda_tpu_torch.crypto.masking import ChaChaMasker
     from sda_tpu_torch.ops import chacha_cuda
     from sda_tpu_torch.protocol import (
@@ -3511,16 +3335,7 @@ def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: 
     slack = arrival_slack_s()
     consumer = threading.current_thread()
 
-    folds = []
-    real_combine = masking.combine_masks_device
-
-    def timed_combine(seeds, *args, **kwargs):
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        events[0].record()
-        out = real_combine(seeds, *args, **kwargs)
-        events[1].record()
-        folds.append((events, np.asarray(seeds), threading.current_thread() is consumer))
-        return out
+    folds = _Folds()
 
     def client(name):
         keystore = Keystore(root / name)
@@ -3557,9 +3372,8 @@ def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: 
     chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
     telemetry.reset()
     traffic.install()
-    masking.combine_masks_device = timed_combine
     try:
-        with _NativeTally() as tally:
+        with _NativeTally() as tally, folds:
             t_wall = time.perf_counter()
             recipient = client("recipient")
             recipient.upload_agent()
@@ -3602,7 +3416,6 @@ def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: 
             seconds["wall_s"] = time.perf_counter() - t_wall
             reveal_overlap = _gauge_value(telemetry, "sda_reveal_overlap_efficiency")
     finally:
-        masking.combine_masks_device = real_combine
         traffic.remove()
         if prior_depth is None:
             os.environ.pop("SDA_PREFETCH_DEPTH", None)
@@ -3618,7 +3431,7 @@ def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: 
     job_ranges = {key: n for (kind, key), n in traffic.ranges.items() if kind == "chunks"}
     mask_ranges = traffic.ranges.get(("result/masks", str(snapshot_id)), 0)
     clerk_ranges = traffic.ranges.get(("result/clerks", str(snapshot_id)), 0)
-    fold_rows = [int(seeds.shape[0]) for _, seeds, _ in folds]
+    fold_rows = folds.rows()
     implied = sum(1 for rows in fold_rows if rows * dim >= threshold)
     live_uploads = [(t, s) for t, batch in uploads for s in batch if not schedule[s].churned]
     churned_uploads = [t for t, batch in uploads for s in batch if schedule[s].churned]
@@ -3627,7 +3440,7 @@ def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: 
     checks = {
         "sum": exact,
         "k2_per_mask_range": launches - recoveries == implied == mask_ranges == len(folds),
-        "folds_on_consumer": all(on_consumer for _, _, on_consumer in folds),
+        "folds_on_consumer": all(fold.thread is consumer for fold in folds),
         "jobs_paged": len(job_ranges) == SEALED_CLERKS and min(job_ranges.values()) > 1,
         "result_paged": mask_ranges > 1 and clerk_ranges > 1,
         "every_row_once": sorted(s for _, batch in uploads for s in batch)
@@ -3653,7 +3466,7 @@ def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: 
           sda_reveal_overlap_efficiency=reveal_overlap,
           job_ranges=sorted(job_ranges.values()), mask_ranges=mask_ranges,
           clerk_result_ranges=clerk_ranges, fold_rows=fold_rows,
-          mask_combine_s=[a.elapsed_time(b) / 1e3 for (a, b), _, _ in folds],
+          mask_combine_s=folds.seconds(),
           **traffic.counts, served_requests=served, wire=wire.mode(),
           k2_launches=launches, implied_folds=implied, slack_recoveries=recoveries,
           seals=tally.boxes["seal"], seal_mb_s=tally.rate_mb_s("seal"), opens=tally.boxes["open"],
@@ -3661,9 +3474,8 @@ def ingest_round_phase(card: str, dev, seed: int, sm_clocks_per_ms: float, url: 
     if not all(checks.values()):
         raise AssertionError(f"ingest round: a check failed: {checks}")
     k2_err = 0
-    for ix, (events, seeds, _) in enumerate(folds):
-        k2_err = max(k2_err, _k2_at_fold(card, dev, [(events, seeds)], dim, p, sm_clocks_per_ms,
-                                         launches, f"ingest round range {ix}"))
+    for ix, fold in enumerate(folds):
+        k2_err = max(k2_err, _k2_at_fold(card, dev, [fold], dim, p, launches, f"ingest round range {ix}"))
     return launches, k2_err, served
 
 
@@ -3831,7 +3643,7 @@ def paillier_round_phase(card: str, dev, seed: int, url: str, root: Path, traffi
         raise AssertionError(f"paillier round: a check failed: {checks}")
 
 
-def ingest_paillier_phases(card: str, dev, seed: int, sm_clocks_per_ms: float):
+def ingest_paillier_phases(card: str, dev, seed: int):
     """Phases 19 and 20 against one ``python -m sda_tpu_torch.cli.sdad
     --sqlite <tmp>/sda.db httpd`` (``--file`` where this Python has no
     ``sqlite3``) started with ``INGEST_SERVER_ENV``. Returns phase 19's
@@ -3846,7 +3658,7 @@ def ingest_paillier_phases(card: str, dev, seed: int, sm_clocks_per_ms: float):
         proc, url = start_sdad(_round_store(tmp), errlog=tmp / "sdad.log", deadline_s=SDAD_START_S,
                                env={**os.environ, **INGEST_SERVER_ENV})
         try:
-            launches, k2_err, served = ingest_round_phase(card, dev, seed, sm_clocks_per_ms, url,
+            launches, k2_err, served = ingest_round_phase(card, dev, seed, url,
                                                           tmp / "ingest", traffic)
             paillier_round_phase(card, dev, seed, url, tmp / "paillier", traffic, served)
         finally:
@@ -3854,7 +3666,7 @@ def ingest_paillier_phases(card: str, dev, seed: int, sm_clocks_per_ms: float):
     return launches, k2_err
 
 
-def flight_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+def flight_phase(card: str, dev, seed: int):
     """Phase 22: phase 14's sealed round once more (``SEALED_COHORT``
     CNN-width updates, 8 clerks, packed Shamir k=5, t=2, n=8, ChaCha) on
     CUDA clients, each participant through ``participate_many``, under one
@@ -3946,7 +3758,7 @@ def flight_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
           launches={"chacha20": launches}, exact=exact, checks=checks, card=card)
     if not all(checks.values()):
         raise AssertionError(f"flight: a check failed: {checks}")
-    k2_err = _k2_at_fold(card, dev, out["folds"], dim, p, sm_clocks_per_ms, launches,
+    k2_err = _k2_at_fold(card, dev, out["folds"], dim, p, launches,
                          "flight round")
     return launches, k2_err
 
@@ -4116,7 +3928,7 @@ SCRIPTS_INGEST_N, SCRIPTS_INGEST_DEFAULT_N = 10_000, 100_000
 SCRIPTS_WIDE_ROWS = 10
 
 
-def _wide_soak_round(card: str, dev, seed: int, sm_clocks_per_ms: float):
+def _wide_soak_round(card: str, dev, seed: int):
     """One ``load_soak`` round at the ``FEDAVG_MODEL`` CNN's width in this
     process: ``build_stack`` on ``dev`` against ``serve_background`` over
     the sqlite store, ``run_round`` with ``SCRIPTS_WIDE_ROWS`` rows drawn
@@ -4132,7 +3944,6 @@ def _wide_soak_round(card: str, dev, seed: int, sm_clocks_per_ms: float):
     import numpy as np
     import torch
 
-    from sda_tpu_torch.crypto import masking
     from sda_tpu_torch.ops import chacha_cuda
     from sda_tpu_torch.rest import serve_background
     from sda_tpu_torch.scripts import load_soak
@@ -4142,24 +3953,13 @@ def _wide_soak_round(card: str, dev, seed: int, sm_clocks_per_ms: float):
     p = load_soak.MODULUS
     values = np.random.default_rng(seed + 24).integers(0, p, size=(SCRIPTS_WIDE_ROWS, dim),
                                                         dtype=np.int64)
-    seconds, folds = {}, []
-    real_combine = masking.combine_masks_device
-
-    def timed_combine(seeds, *args, **kwargs):
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        events[0].record()
-        out = real_combine(seeds, *args, **kwargs)
-        events[1].record()
-        folds.append((events, np.asarray(seeds)))
-        return out
-
+    seconds, folds = {}, _Folds()
     # the soak's paged delivery, as load_soak's main sets it for its server
     paged = load_soak.PAGED_ENV
     saved = {k: os.environ.get(k) for k in paged}
     os.environ.update(paged)
-    masking.combine_masks_device = timed_combine
     try:
-        with tempfile.TemporaryDirectory() as tmp, \
+        with folds, tempfile.TemporaryDirectory() as tmp, \
                 serve_background(new_sqlite_server(os.path.join(tmp, "soak.db"))) as url:
             recipient, rkey, clerks, participant = stack = load_soak.build_stack(Path(tmp), url, dev)
             _timed(participant, "new_participations", seconds, "build_s")
@@ -4174,24 +3974,23 @@ def _wide_soak_round(card: str, dev, seed: int, sm_clocks_per_ms: float):
             torch.cuda.synchronize()
             launches, recoveries = chacha_cuda.launches, chacha_cuda.slack_recoveries
     finally:
-        masking.combine_masks_device = real_combine
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    fold_s = sum(a.elapsed_time(b) for (a, b), _ in folds) / 1e3 if folds else None
+    fold_s = sum(folds.seconds()) if folds else None
     implied = -(-SCRIPTS_WIDE_ROWS // chacha_cuda.default_chunk(dim))
     checks = {"exact": record["exact"], "one_fold": len(folds) == 1,
               "k2_per_fold_chunk": launches - recoveries == implied,
-              "fold_rows": [int(s.shape[0]) for _, s in folds] == [SCRIPTS_WIDE_ROWS]}
+              "fold_rows": folds.rows() == [SCRIPTS_WIDE_ROWS]}
     _line("soak round", rows=SCRIPTS_WIDE_ROWS, dim=dim, modulus=p, store="sqlite",
           round_s=record["round_s"], **seconds, mask_combine_s=fold_s,
           launches={"chacha20": launches}, slack_recoveries=recoveries, exact=record["exact"],
           checks=checks, card=card)
     if not all(checks.values()):
         raise AssertionError(f"soak round: a check failed: {checks}")
-    k2_err = _k2_at_fold(card, dev, folds, dim, p, sm_clocks_per_ms, launches, "soak round",
+    k2_err = _k2_at_fold(card, dev, folds, dim, p, launches, "soak round",
                          round_s=record["round_s"], ingest_s=seconds.get("ingest_s"),
                          reveal_s=seconds.get("reveal_s"), mask_combine_s=fold_s)
     return launches, k2_err
@@ -4272,7 +4071,7 @@ def _check_metrics_checks(rc: int, out: str) -> tuple[dict, dict]:
              "series_required": len(REQUIRED_SERIES)})
 
 
-def scripts_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+def scripts_phase(card: str, dev, seed: int):
     """Phase 24: ``_wide_soak_round``, then the scripts as subprocesses on
     the card (``cuda``, their default device) with the ``SDA_*`` settings of
     earlier phases cleared, ``SCRIPTS_PARALLEL`` at a time; one ``script``
@@ -4284,7 +4083,7 @@ def scripts_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
 
     import torch
 
-    k2, k2_err = _wide_soak_round(card, dev, seed, sm_clocks_per_ms)
+    k2, k2_err = _wide_soak_round(card, dev, seed)
     torch.cuda.empty_cache()  # the subprocesses share the card with this one
 
     base = {k: v for k, v in os.environ.items() if not k.startswith("SDA_")}
@@ -4395,7 +4194,7 @@ CHURN_TIMED = {"new_participations": "participate_s", "upload_participations": "
                "end_aggregation": "snapshot_s", "run_chores": "clerking_s"}
 
 
-def _churn_width_round(card: str, dev, seed: int, sm_clocks_per_ms: float):
+def _churn_width_round(card: str, dev, seed: int):
     """vanish-after-sharing's packed case at the ``FEDAVG_MODEL`` CNN's width:
     ``_sealed_updates``' scheme (packed Shamir k=5, t=2, n=8, threshold 7)
     and 10 rows drawn from ``seed``, through
@@ -4414,7 +4213,6 @@ def _churn_width_round(card: str, dev, seed: int, sm_clocks_per_ms: float):
     import torch
 
     from sda_tpu_torch.client import SdaClient
-    from sda_tpu_torch.crypto import masking
     from sda_tpu_torch.ops import chacha_cuda
     from sda_tpu_torch.scripts import scenarios
 
@@ -4422,16 +4220,7 @@ def _churn_width_round(card: str, dev, seed: int, sm_clocks_per_ms: float):
     scheme, values = _sealed_updates(dev, rng)
     p, dim = scheme.prime_modulus, len(values[0])
     want = np.stack(values).sum(axis=0) % p
-    seconds, reveals, folds = {}, [], []
-    real_combine = masking.combine_masks_device
-
-    def timed_combine(seeds, *args, **kwargs):
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        events[0].record()
-        out = real_combine(seeds, *args, **kwargs)
-        events[1].record()
-        folds.append((events, np.asarray(seeds)))
-        return out
+    seconds, reveals, folds = {}, [], _Folds()
 
     def timed(name, real):
         def call(self, *args, **kwargs):
@@ -4450,9 +4239,8 @@ def _churn_width_round(card: str, dev, seed: int, sm_clocks_per_ms: float):
     own = {name: SdaClient.__dict__.get(name) for name in names}
     for name in names:
         setattr(SdaClient, name, timed(name, getattr(SdaClient, name)))
-    masking.combine_masks_device = timed_combine
     try:
-        with tempfile.TemporaryDirectory() as tmp, \
+        with folds, tempfile.TemporaryDirectory() as tmp, \
                 scenarios.Deployment("mem", "rest", Path(tmp), device=dev) as dep:
             torch.cuda.synchronize()
             chacha_cuda.launches = chacha_cuda.slack_recoveries = 0
@@ -4463,14 +4251,12 @@ def _churn_width_round(card: str, dev, seed: int, sm_clocks_per_ms: float):
             round_s = time.perf_counter() - t0
             launches, recoveries = chacha_cuda.launches, chacha_cuda.slack_recoveries
     finally:
-        masking.combine_masks_device = real_combine
         for name, fn in own.items():
             if fn is None:
                 delattr(SdaClient, name)
             else:
                 setattr(SdaClient, name, fn)
     (degraded_s, degraded), (full_s, full) = reveals
-    fold_ms = [a.elapsed_time(b) for (a, b), _ in folds]
     per_reveal = -(-len(values) // chacha_cuda.default_chunk(dim))
     checks = {
         "degraded_sum": bool(np.array_equal(degraded.positive().values, want)),
@@ -4479,20 +4265,19 @@ def _churn_width_round(card: str, dev, seed: int, sm_clocks_per_ms: float):
                           and bool(np.array_equal(full.values, degraded.values)),
         "details": details["aggregate"] == want.tolist()
                    and (details["committee"], details["threshold"]) == (8, 7),
-        "two_folds": [int(s.shape[0]) for _, s in folds] == [len(values)] * 2,
+        "two_folds": folds.rows() == [len(values)] * 2,
         "k2_per_fold_chunk": launches - recoveries == 2 * per_reveal,
     }
     _line("churn round", scenario="vanish-after-sharing", case="packed", rows=len(values),
           dim=dim, modulus=p, committee=details["committee"], threshold=details["threshold"],
           vanished=details["vanished"], store="mem", transport="rest", round_s=round_s, **seconds,
           reveal_s={"degraded": degraded_s, "full": full_s},
-          mask_combine_s=[ms / 1e3 for ms in fold_ms], launches={"chacha20": launches},
+          mask_combine_s=folds.seconds(), launches={"chacha20": launches},
           slack_recoveries=recoveries, checks=checks, card=card)
     if not all(checks.values()):
         raise AssertionError(f"churn round: a check failed: {checks}")
-    k2_err = _k2_at_fold(card, dev, folds[:1], dim, p, sm_clocks_per_ms, launches, "churn round",
-                         round_s=round_s, reveal_s=[degraded_s, full_s],
-                         mask_combine_s=[ms / 1e3 for ms in fold_ms])
+    k2_err = _k2_at_fold(card, dev, folds[:1], dim, p, launches, "churn round", round_s=round_s,
+                         reveal_s=[degraded_s, full_s], mask_combine_s=folds.seconds())
     return launches, k2_err
 
 
@@ -4519,7 +4304,7 @@ def _churn_ci_checks(artifacts: Path) -> tuple[dict, dict]:
     return checks, numbers
 
 
-def churn_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
+def churn_phase(card: str, dev, seed: int):
     """Phase 25: ``_churn_width_round``, then the reference CI's churn stage
     and its crash soak as subprocesses on the card (``--device cuda``) with
     the ``SDA_*`` settings of earlier phases cleared, ``CHURN_PARALLEL`` at
@@ -4532,7 +4317,7 @@ def churn_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
 
     import torch
 
-    k2, k2_err = _churn_width_round(card, dev, seed, sm_clocks_per_ms)
+    k2, k2_err = _churn_width_round(card, dev, seed)
     torch.cuda.empty_cache()  # the subprocesses share the card with this one
 
     base = {k: v for k, v in os.environ.items() if not k.startswith("SDA_")}
@@ -4588,13 +4373,6 @@ def churn_phase(card: str, dev, seed: int, sm_clocks_per_ms: float):
         raise AssertionError(f"churn: failed legs {[k for k, v in verdicts.items() if not v]}, "
                              f"ci checks {ci_checks}, bench-artifacts untouched: {untouched}")
     return k2, k2_err
-
-
-def _query_gpu(field: str) -> str:
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader,nounits"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:
@@ -4666,18 +4444,9 @@ def main(argv=None) -> int:
     cc_version = subprocess.run([native.compiler(), "--version"], check=True, capture_output=True,
                                 text=True, timeout=60).stdout.splitlines()[0]
     build_s = time.perf_counter() - t0
-    # K2's integer instructions per 64-byte block, for its operations bound
-    # ("chacha20_kernelE" ends K2's mangled name, not chacha20_kernel_expand's)
-    k2_body, k2_after = sass_counts(_sass(kernels.library_path("chacha20")), "chacha20_kernelE",
-                                    K2_SASS_FAMILIES)
-    K2_PER_BLOCK.update(k2_body, int_pipe=sum(k2_body[f] for f in INT_PIPE_FAMILIES),
-                        issue=sum(k2_body.values()))
     _line("build", seconds=build_s, kernels=sorted(kernels.KERNELS),
           native={"seconds": native_build["seconds"], "library": native.library_path().name,
-                  "cc": native.compiler(), "cc_version": cc_version},
-          k2_sass_per_block=K2_PER_BLOCK, k2_sass_after_body=k2_after)
-    if not K2_PER_BLOCK["int_pipe"]:
-        raise AssertionError("chacha20's SASS holds no INT-pipe instruction: the count is broken")
+                  "cc": native.compiler(), "cc_version": cc_version})
     for name, report in reports.items():
         for text in report.strip().splitlines():
             print(f"ptxas[{name}]: {text}", flush=True)
@@ -4926,8 +4695,8 @@ def main(argv=None) -> int:
     if cats:
         raise AssertionError(f"the main path still concatenates K1's input: {cats}")
     # K1 at the main path's chunk shape through the entry the path uses: its
-    # own device time per launch by the profiler, the wrapper's (checks,
-    # ctypes call, output zeroing) by CUDA events, against ``_k1_bound``
+    # own device time per launch over its C entry, the wrapper's (checks,
+    # ctypes call, output zeroing), against ``_k1_bound``
     stacks = plan.limb_stacks
     k1_secrets, k1_rand = full_inputs
 
@@ -4937,89 +4706,84 @@ def main(argv=None) -> int:
     def k1_plain():
         return share_limb_sums_torch(k1_secrets, k1_rand, stacks, K_SECRETS)
 
-    plain_a = _time_ms(k1_plain, iters=2)
-    kernel_a = _kernel_ms(k1_run, 20, "limb_share_sum")
-    kernel_b = _kernel_ms(k1_run, 20, "limb_share_sum")
-    plain_b = _time_ms(k1_plain, iters=2)
-    wrapper = _time_ms(k1_run, iters=20, warmup=3)
+    plain = _event_ms(k1_plain, 2, warmup=1)
+    event_ms = _event_ms(_k1_entry(k1_secrets, k1_rand, stacks, K_SECRETS), 20)
+    wrapper = _event_ms(k1_run, 20, windows=1, warmup=3)
     moved, ops, bytes_ms, ops_ms = _k1_bound(k1_secrets, k1_rand, stacks)
-    kernel_ms, plain_ms = min(kernel_a, kernel_b), min(plain_a, plain_b)
+    kernel_ms, plain_ms = min(event_ms), min(plain)
     _line("numbers", kernel="limb_share_sum", shape=[list(k1_secrets.shape), list(k1_rand.shape)],
-          kernel_ms=[kernel_a, kernel_b], wrapper_ms=wrapper, plain_ms=[plain_a, plain_b],
+          event_ms=event_ms, wrapper_ms=wrapper, plain_ms=plain,
           bytes=moved, int8_ops=ops, bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
           ops_ms=ops_ms, imma=imma, library_ms=None, launches=launches,
           masked_launches=masked_launches["limb_share_sum"], stream_wall_s=stream_s, card=card)
 
-    # K2 at the masked path's chunk shape: its own device time per launch by
-    # the profiler, and the wrapper's (key packing included) by CUDA events,
-    # against ``_k2_bound``
+    # K2 at the masked path's chunk shape, the one shape it is timed at: no
+    # path launches it, it stands as the JAX package's keystream kernel's
+    # counterpart (the kernel table's row). Its own time per launch over its
+    # C entry, the wrapper's (key packing included), against ``_chacha_bound``
     def k2_run():
         return _k2(chunk_keys, 0, chunk_blocks)
 
     def k2_plain():
         return chacha_blocks_torch(chunk_keys, 0, chunk_blocks)
 
-    plain2_a = _time_ms(k2_plain, iters=2)
-    kernel2_a = _kernel_ms(k2_run, 20, "chacha20")
-    kernel2_b = _kernel_ms(k2_run, 20, "chacha20")
-    plain2_b = _time_ms(k2_plain, iters=2)
-    wrapper2 = _time_ms(k2_run, iters=20, warmup=3)
-    clock_mhz = float(_query_gpu("clocks.max.sm"))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    sm_clocks_per_ms = sms * clock_mhz * 1e3
-    moved2, ops2, int_ops2, bytes2_ms, ops2_ms = _k2_bound(CHUNK, chunk_blocks, sm_clocks_per_ms)
-    kernel2_ms, plain2_ms = min(kernel2_a, kernel2_b), min(plain2_a, plain2_b)
-    _line("numbers", kernel="chacha20", shape=[CHUNK, chunk_blocks, 16],
-          kernel_ms=[kernel2_a, kernel2_b], event_ms=_k2_event_ms(chunk_keys, chunk_blocks),
-          wrapper_ms=wrapper2, plain_ms=[plain2_a, plain2_b],
-          bytes=moved2, int32_ops=ops2, int_pipe_ops=int_ops2, sms=sms, max_sm_clock_mhz=clock_mhz,
-          bound_ms=max(bytes2_ms, ops2_ms), bytes_ms=bytes2_ms, ops_ms=ops2_ms, library_ms=None,
-          card=card)
+    plain2 = _event_ms(k2_plain, 2, warmup=1)
+    k2_out = torch.empty((CHUNK, chunk_blocks, 16), dtype=torch.int32, device=dev)
+    event2_ms = _event_ms(_c_entry("chacha20", "chacha20_launch", chacha_cuda.kernel_keys(chunk_keys), 0,
+                                   chunk_blocks, CHUNK, k2_out), 20)
+    del k2_out
+    wrapper2 = _event_ms(k2_run, 20, windows=1, warmup=3)
+    moved2, bytes2_ms, ops2_ms = _chacha_bound(CHUNK, chunk_blocks)
+    kernel2_ms, plain2_ms = min(event2_ms), min(plain2)
+    _line("numbers", kernel="chacha20", shape=[CHUNK, chunk_blocks, 16], event_ms=event2_ms,
+          wrapper_ms=wrapper2, plain_ms=plain2, bytes=moved2,
+          int_pipe_ops=CHUNK * chunk_blocks * CHACHA_OPS_PER_BLOCK, bound_ms=max(bytes2_ms, ops2_ms),
+          bytes_ms=bytes2_ms, ops_ms=ops2_ms, library_ms=None, card=card)
     # K2x, which the masked path and the reveal launch: at the path's chunk,
     # held against the CPU's plain version too, and at the reveal's fold
     expand_ms, expand_plain_ms, expand_bytes_ms, expand_ops_ms = _expand_at(
-        card, chunk_keys, DIM, p, sm_clocks_per_ms, "masked path chunk", masked_launches["chacha20"],
+        card, chunk_keys, DIM, p, "masked path chunk", masked_launches["chacha20"],
         cpu=True)
-    _expand_at(card, fold_batch, REVEAL_DIM, p, sm_clocks_per_ms, "reveal fold", reveal_launches)
+    _expand_at(card, fold_batch, REVEAL_DIM, p, "reveal fold", reveal_launches)
 
     # -- 8. sum-first at full width; 9. the fabrics under NCCL ------------------
     sumfirst_phase(card, dev, args.seed)
     fabric_launches, fabric_k2_err = fabric_phase(card, dev, args.seed)
     # -- 10. a ChaCha-masked FedAvg round at the FedAvg paper's CNN width ----
     fedavg_k1, fedavg_k2x, fedavg_k1_err, fedavg_k2_err = fedavg_phase(
-        card, dev, args.seed, scheme, sm_clocks_per_ms)
+        card, dev, args.seed, scheme)
     # -- 11. the bench entry, once per engine route ----------------------------
     bench_k1 = bench_phase(card)
     # -- 12. the baseline ladder's device rows and the fabric demo ---------------
     ladder_k1, ladder_k1_err = drivers_phase(card, dev, args.seed)
     # -- 13. weighted and DP FedAvg rounds with server optimizers ----------------
     model_k1, model_k2x, model_dgauss, model_k1_err, model_k2_err = model_rounds_phase(
-        card, dev, args.seed, sm_clocks_per_ms)
+        card, dev, args.seed)
     # -- 26. the discrete Gaussian kernel at the DP cell's chunk and a DP wire ------
     dgauss_err, dgauss_ms, dgauss_plain_ms, dgauss_bound_ms, dgauss_checks = dgauss_phase(card, dev, args.seed)
     # -- 21. the native batch layer against its plain versions, which 14-19 ride ---
     native_phase(card, dev, args.seed)
     # -- 14. the sealed aggregation round through the protocol plane ---------------
-    sealed_k2x, sealed_k2_err = sealed_round_phase(card, dev, args.seed, sm_clocks_per_ms)
+    sealed_k2x, sealed_k2_err = sealed_round_phase(card, dev, args.seed)
     # -- 15. DP federated training on the sealed round, checkpoints and a restore -
-    trainer_k2x, trainer_dgauss, trainer_k2_err = trainer_phase(card, dev, args.seed, sm_clocks_per_ms)
+    trainer_k2x, trainer_dgauss, trainer_k2_err = trainer_phase(card, dev, args.seed)
     # -- 16. the analytics examples; every cohort below the device threshold -----
     examples_dgauss = analytics_phase(card, dev, args.seed)
     # -- 17. the REST deployment: phase 14's round over loopback HTTP, the CLIs ---
-    rest_k2x, rest_k2_err = rest_round_phase(card, dev, args.seed, sm_clocks_per_ms)
+    rest_k2x, rest_k2_err = rest_round_phase(card, dev, args.seed)
     # -- 18. the scale-out plane: a tiered round over two sharded frontends --------
-    tier_k2x, tier_k2_err = tier_round_phase(card, dev, args.seed, sm_clocks_per_ms)
+    tier_k2x, tier_k2_err = tier_round_phase(card, dev, args.seed)
     # -- 19. arrival-driven ingest, paged reads; 20. the Packed Paillier round -----
-    ingest_k2x, ingest_k2_err = ingest_paillier_phases(card, dev, args.seed, sm_clocks_per_ms)
+    ingest_k2x, ingest_k2_err = ingest_paillier_phases(card, dev, args.seed)
     # -- 22. phase 14's round once more, traced, logged and read by the flight recorder
-    flight_k2x, flight_k2_err = flight_phase(card, dev, args.seed, sm_clocks_per_ms)
+    flight_k2x, flight_k2_err = flight_phase(card, dev, args.seed)
     # -- 23. the bench's protocol-plane riders, then its K1 route, as a user runs it
     torch.cuda.empty_cache()  # the subprocess shares the card with this one
     riders_k1 = riders_phase(card)
     # -- 24. the CI gate's scripts, after a load_soak round at the CNN's width ----
-    scripts_k2x, scripts_k2_err = scripts_phase(card, dev, args.seed, sm_clocks_per_ms)
+    scripts_k2x, scripts_k2_err = scripts_phase(card, dev, args.seed)
     # -- 25. the churn plane: a CNN-width vanish round, then ci's churn stage --
-    churn_k2x, churn_k2_err = churn_phase(card, dev, args.seed, sm_clocks_per_ms)
+    churn_k2x, churn_k2_err = churn_phase(card, dev, args.seed)
 
     print(json.dumps({"kernels": [{
         "name": "limb_share_sum",

@@ -27,8 +27,6 @@ sensitivity includes the √d/2 rounding slack, and the field keeps
 Tracing: the DP wire opens the ranges ``sda.dp.clip``, ``sda.dp.quantize``
 and ``sda.dp.noise``, which holds the sampler's ``sda.dp.noise.draw``: on
 the card one launch of ``ops/dgauss_cuda.py``'s kernel, with no host sync.
-The discrete Gaussian sampler counts its proposals and accepted values in
-the registry (``sample_discrete_gaussian``).
 """
 
 from __future__ import annotations
@@ -39,7 +37,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import telemetry
 from ..device import resolve_device
 from ..ops import dgauss_cuda
 from ..ops.dgauss_cuda import acceptance_rate  # noqa: F401 - one of dp's names
@@ -105,21 +102,12 @@ def sample_discrete_gaussian(sigma: float, size, generator: torch.Generator) -> 
     exp(-(|y| - σ²/t)²/(2σ²)) in float64, and keep the accepted proposals
     in their order within each segment. One ``_dgauss_pass`` a call,
     whatever the size: a ``(P, dim)`` chunk of parties draws its noise at
-    once.
-
-    Counters: ``sda_dp_noise_proposals_total`` (proposals drawn; from the
-    card, folded in when the registry is read), ``sda_dp_noise_accepted_total``
-    (values kept: the size drawn) and ``sda_dp_noise_leftover_passes_total``
-    (kept registered; no pass is left over since the segment fill, so it
-    reads 0)."""
+    once."""
     if sigma <= 0:
         raise ValueError("sigma must be positive")
     shape = _shape(size)
     n = math.prod(shape)
-    values = _dgauss_pass(sigma, n, generator)
-    telemetry.counter("sda_dp_noise_accepted_total").inc(n)
-    telemetry.counter("sda_dp_noise_leftover_passes_total")
-    return values.reshape(shape)
+    return _dgauss_pass(sigma, n, generator).reshape(shape)
 
 
 def sample_skellam(mu: float, size, generator: torch.Generator) -> torch.Tensor:

@@ -12,19 +12,14 @@ then, on a CUDA generator, launches the kernel or raises; on a CPU generator
 it runs ``dgauss_plain``, the same stream in torch, vectorised over the
 segments, bit for bit the kernel's (the card tests hold them equal).
 
-Counters: ``launches`` (the kernel's launches). The proposals drawn go to
-the registry's ``sda_dp_noise_proposals_total``: the plain twin adds them on
-the host; the kernel adds them to an int64 on its device (one atomicAdd a
-block), and each launch queues a copy of that int64 into pinned host memory
-behind it. ``fold_proposals`` adds the newest copy that has landed whenever
-the registry is read, so neither drawing nor a read of the registry waits on
-the card: a read counts the launches the card has finished, all of them once
-the host has waited on it.
+Counters: ``launches`` (the kernel's launches), and each device's count of
+the proposals drawn on it, an int64 there: the kernel adds its own to it
+(one atomicAdd a block), and on the CPU ``sample`` adds the twin's.
+``proposals(device)`` reads it, which waits on the device.
 """
 
 from __future__ import annotations
 
-import collections
 import functools
 import math
 import threading
@@ -32,13 +27,9 @@ import threading
 import numpy as np
 import torch
 
-from .. import telemetry
-
 #: values a warp fills in one go (a multiple of ``LANES``)
 SEGMENT = 256
 LANES = 32
-#: the registry's count of proposals drawn
-PROPOSALS = "sda_dp_noise_proposals_total"
 
 #: launches of ``dgauss_kernel``; only ``sample`` adds to it
 launches = 0
@@ -50,9 +41,9 @@ _U32 = 0xFFFFFFFF
 #: transients stay near half a GB at any n
 _TWIN_SEGMENTS = 1 << 14
 
-#: device -> its ``_Tally``
-_tallies: dict = {}
-#: guards the tallies' queues, their counts and ``launches``
+#: device -> the int64 there that counts its proposals
+_accumulators: dict = {}
+#: guards ``_accumulators``, the CPU's count and ``launches``
 _lock = threading.Lock()
 
 
@@ -174,52 +165,32 @@ def sample(sigma: float, n: int, generator: torch.Generator) -> torch.Tensor:
     key = draw_key(generator)
     if key.device.type == "cpu":
         out, drawn = dgauss_plain(sigma, n, key)
-        telemetry.counter(PROPOSALS).inc(int(drawn))
+        acc = _accumulator(key.device)
+        with _lock:
+            acc += drawn
         return out
     return dgauss_cuda(sigma, n, key)
 
 
-class _Tally:
-    """A device's count of the kernel's proposals: ``acc``, the int64 the
-    kernel adds to, and the copies of it queued into pinned host memory
-    behind the launches (``(event, copy)``, oldest first). ``landed`` is the
-    newest copy whose event has passed, ``folded`` what the registry holds."""
-
-    def __init__(self, acc: torch.Tensor):
-        self.acc = acc
-        self.copies = collections.deque()
-        self.landed = self.folded = 0
-
-    def queue_copy(self) -> None:
-        """On the current stream, behind the launch: a copy of ``acc`` and
-        an event after it. Takes the copies that have landed, so the queue
-        holds only those still in flight."""
-        copy = torch.empty((), dtype=torch.int64, pin_memory=True)
-        copy.copy_(self.acc, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        self.copies.append((event, copy))
-        self.take_landed()
-
-    def take_landed(self) -> int:
-        while self.copies and self.copies[0][0].query():
-            self.landed = int(self.copies.popleft()[1])
-        return self.landed
-
-
 def _accumulator(device: torch.device) -> torch.Tensor:
-    """The int64 on ``device`` that the kernel adds its proposals to."""
+    """The int64 on ``device`` that counts the proposals drawn there."""
     with _lock:
-        tally = _tallies.get(device)
-        if tally is None:
-            tally = _tallies[device] = _Tally(torch.zeros((), dtype=torch.int64, device=device))
-    return tally.acc
+        acc = _accumulators.get(device)
+        if acc is None:
+            acc = _accumulators[device] = torch.zeros((), dtype=torch.int64, device=device)
+    return acc
+
+
+def proposals(device) -> int:
+    """The proposals drawn on ``device`` so far, by the kernel on a card and
+    by the twin through ``sample`` on the CPU; the read waits on the
+    device."""
+    return int(_accumulator(torch.device(device)))
 
 
 def dgauss_cuda(sigma: float, n: int, key: torch.Tensor) -> torch.Tensor:
     """One launch of ``dgauss_kernel`` for ``n`` values from the CUDA 0-d
-    int64 ``key``; its proposals go to the device's accumulator, and a copy
-    of the accumulator is queued behind the launch."""
+    int64 ``key``; its proposals go to the device's accumulator."""
     global launches
     from .. import kernels
 
@@ -236,23 +207,8 @@ def dgauss_cuda(sigma: float, n: int, key: torch.Tensor) -> torch.Tensor:
         acc = _accumulator(key.device)
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(key.data_ptr(), n, t, center, scale, out.data_ptr(), acc.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"dgauss launch failed: cudaError {rc}")
-        with _lock:
-            _tallies[key.device].queue_copy()
-            launches += 1
-    return out
-
-
-def fold_proposals() -> None:
-    """Adds to the registry the proposals counted on each device since the
-    last fold, as far as the copies that have landed show: a read of host
-    memory, never of the card. The registry calls it whenever it is read."""
+    if rc != 0:
+        raise RuntimeError(f"dgauss launch failed: cudaError {rc}")
     with _lock:
-        for tally in _tallies.values():
-            landed = tally.take_landed()
-            telemetry.counter(PROPOSALS).inc(landed - tally.folded)
-            tally.folded = landed
-
-
-telemetry.get_registry().add_collector(fold_proposals)
+        launches += 1
+    return out

@@ -105,19 +105,6 @@ class Registry:
         #: name -> (kind, buckets | None, help), registered at handle creation
         self._meta: dict = {}
         self._handles: dict = {}
-        #: callables run before every read and reset, to bring in counts
-        #: kept elsewhere (a kernel's count on its device)
-        self._collectors: list = []
-
-    def add_collector(self, collect) -> None:
-        """Run ``collect()`` (which may write series) before each
-        ``snapshot`` and ``reset``. It runs on whatever thread reads the
-        registry, so it must not wait: on the device, a lock held long."""
-        self._collectors.append(collect)
-
-    def _collect(self) -> None:
-        for collect in list(self._collectors):
-            collect()
 
     def _handle(self, kind: str, cls, name: str, labels: dict, buckets=None, help=""):
         key = (kind, name, _labels_key(labels))
@@ -148,7 +135,6 @@ class Registry:
         {key: {buckets, counts, sum, count, max}}, "meta": {name: (kind,
         buckets, help)}}`` with
         ``key = (name, ((label, value), ...))``."""
-        self._collect()
         with self._lock:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
@@ -166,7 +152,6 @@ class Registry:
     def reset(self) -> None:
         """Clear every series; handles and metadata survive, so held
         references stay valid."""
-        self._collect()
         with self._lock:
             self._counters.clear()
             self._gauges.clear()

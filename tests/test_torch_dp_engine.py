@@ -2,8 +2,8 @@
 CPU: the batched discrete Gaussian sampler against the law, the row clip
 against the one-vector clip, ``DPFederatedAveraging.wire`` through the same
 code at P = 1, the engine's two steps against the benchmark's plain
-reference (``sdabench/reference/fedavg_dp.py``), the sampler's ranges and
-counters under a CPU profiler, and its segment fill
+reference (``sdabench/reference/fedavg_dp.py``), the sampler's ranges under
+a CPU profiler and its count of proposals, and its segment fill
 (``sda_tpu_torch/ops/dgauss_cuda.py``, the kernel's plain twin) against
 torch's own Philox4x32-10 and a scalar loop over the same stream."""
 
@@ -184,30 +184,23 @@ def _ranges(run) -> dict:
     return counts
 
 
-def _counter(name):
-    return telemetry.counter(name).value()
-
-
-NAMES = ("sda_dp_noise_proposals_total", "sda_dp_noise_accepted_total", "sda_dp_noise_leftover_passes_total")
-
-
 def test_a_chunk_syncs_once_and_counts_its_draws():
     """25 parties' noise in one call: no ``sync.`` range at all (the segment
-    fill keeps no count on the host), ``dp.noise`` with one ``draw``; the
-    counters add the call's proposals, 25 x dim accepted values and no
-    leftover pass, and proposals over accepted read 1.30-1.50 (1/0.760 for
-    the acceptance, plus the last step's surplus of each 256-value
-    segment)."""
+    fill keeps no count on the host), ``dp.noise`` with one ``draw`` for
+    the 25 x dim values; the CPU's count of proposals (``proposals``) grows
+    by the call's, a multiple of 32, and proposals over values read
+    1.30-1.50 (1/0.760 for the acceptance, plus the last step's surplus of
+    each 256-value segment)."""
     fed = _fed(seed=15)
     q = fed.dp_clip_quantize(torch.zeros((25, DIM)))
-    before = [_counter(name) for name in NAMES]
+    before = dgauss_cuda.proposals("cpu")
     launched = dgauss_cuda.launches
-    counts = _ranges(lambda: fed.dp_add_noise(q))
-    after = [_counter(name) for name in NAMES]
+    wires = []
+    counts = _ranges(lambda: wires.append(fed.dp_add_noise(q)))
+    proposals = dgauss_cuda.proposals("cpu") - before
     assert counts == {"sda.dp.noise": 1, "sda.dp.noise.draw": 1}
-    proposals, accepted, leftover = (b - a for a, b in zip(before, after))
-    assert accepted == 25 * DIM and leftover == 0
-    assert 1.30 < proposals / accepted < 1.50
+    assert wires[0].shape == (25, DIM)
+    assert 1.30 < proposals / (25 * DIM) < 1.50
     assert proposals % dgauss_cuda.LANES == 0
     assert dgauss_cuda.launches == launched  # the CPU runs the plain twin
     clip = _ranges(lambda: fed.dp_clip_quantize(torch.ones((25, DIM))))
@@ -264,6 +257,9 @@ def test_leftover_passes_sync_once_each():
         values, drawn = dgauss_cuda.dgauss_plain(sigma, n, key)
         want, want_drawn = _segment_fill_loop(sigma, n, int(key) % (1 << 64))
         assert values.tolist() == want and int(drawn) == want_drawn, (sigma, n)
+        before = dgauss_cuda.proposals("cpu")  # ``sample`` draws the same key first
+        assert dgauss_cuda.sample(sigma, n, _gen(seed)).tolist() == want
+        assert dgauss_cuda.proposals("cpu") - before == want_drawn, (sigma, n)
 
 
 #: (key, subsequence, offset) -> the four words of torch's ``at::Philox4_32``
@@ -328,39 +324,36 @@ def test_same_seed_same_draws_and_successive_calls_differ():
     assert (first == second).double().mean() < 0.1
 
 
-class _Event:
-    """A stand-in for a CUDA event: ``query()`` is whether it has passed."""
-
-    def __init__(self, passed):
-        self.passed = passed
-
-    def query(self):
-        return self.passed
-
-
-def test_device_proposals_fold_when_the_registry_is_read(monkeypatch):
-    """The kernel's count reaches the host as copies queued behind its
-    launches: each read of the registry adds what the landed copies show
-    since the last read, once, and takes no copy still in flight."""
-    tally = dgauss_cuda._Tally(torch.zeros((), dtype=torch.int64))
-    monkeypatch.setattr(dgauss_cuda, "_tallies", {torch.device("cpu"): tally})
-    before = _counter("sda_dp_noise_proposals_total")
-    in_flight = _Event(False)
-    tally.copies.extend([(_Event(True), torch.tensor(1376)), (in_flight, torch.tensor(1408))])
-    assert _counter("sda_dp_noise_proposals_total") == before + 1376
-    assert _counter("sda_dp_noise_proposals_total") == before + 1376
-    assert len(tally.copies) == 1
-    in_flight.passed = True
-    telemetry.snapshot()  # a read of its own: it folds the 32, and the next read adds nothing
-    assert _counter("sda_dp_noise_proposals_total") == before + 1408
-    assert not tally.copies
-
-
 def test_empty_and_scalar_draws():
-    before = _counter("sda_dp_noise_proposals_total")
+    before = dgauss_cuda.proposals("cpu")
     assert dp.sample_discrete_gaussian(2.0, (0, 5), _gen()).shape == (0, 5)
-    assert _counter("sda_dp_noise_proposals_total") == before  # nothing to draw, no key, no launch
+    assert dgauss_cuda.proposals("cpu") == before  # nothing to draw, no key, no launch
     assert dp.sample_discrete_gaussian(2.0, (), _gen()).shape == ()
+
+
+def test_a_registry_read_calls_nothing_in_the_sampler():
+    """After a draw, reading the registry (a snapshot, the Prometheus text)
+    runs no code of ``ops/dgauss_cuda.py``, and no ``sda_dp_noise_*`` series is registered:
+    the sampler's count stays with ``proposals``, read on demand."""
+    import sys
+
+    dp.sample_discrete_gaussian(40.0, (2, 300), _gen(24))
+    called = []
+
+    def profile(frame, event, arg):
+        if event == "call" and frame.f_code.co_filename == dgauss_cuda.__file__:
+            called.append(frame.f_code.co_name)
+
+    sys.setprofile(profile)
+    try:
+        snap = telemetry.snapshot()
+        telemetry.prometheus_text()
+    finally:
+        sys.setprofile(None)
+    assert called == []
+    names = {row["name"] for kind in ("counters", "gauges", "histograms") for row in snap[kind]}
+    names |= set(telemetry.get_registry().snapshot()["meta"])
+    assert not [name for name in names if name.startswith("sda_dp_noise")]
 
 
 def test_acceptance_rate_and_budget():
